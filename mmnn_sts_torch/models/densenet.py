@@ -1,0 +1,158 @@
+"""3D DenseNet with the custom feature head (counterpart of
+the JAX package's models/densenet.py), eval mode.
+
+* ``DenseLayer``: fused BN -> ReLU -> 1x1x1 conv (the bottleneck, through
+  ``ops.fused_dense``) -> BN -> ReLU -> 3x3x3 conv -> concat with the input.
+* ``Transition``: BN -> ReLU -> 1x1x1 conv (in // 2) -> avg pool 2.
+* ``DenseNet``: conv0 (7, stride 2, pad 3) -> BN -> ReLU -> max pool
+  (3, 2, 1) -> blocks and transitions -> norm5, then the ``features`` head
+  (ReLU -> global average pool -> Linear(feature_channels)) and the
+  ``class_layers`` head (Linear(out_channels)). Dropout is the identity in
+  eval mode and is left out.
+
+The stem is a plain strided convolution with the logical (7, 7, 7) kernel;
+the JAX package's space-to-depth form of it is a TPU layout choice with the
+same numbers. Submodule names follow the JAX package's parameter paths, so
+``convert.py`` maps checkpoints name for name.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from ..ops.fused_dense import bn_relu_conv1x1
+from .common import (
+    CHANNELS_LAST,
+    BN_EPS,
+    BatchNorm,
+    require_eval,
+    avg_pool,
+    conv,
+    global_avg_pool,
+    max_pool,
+)
+
+
+class FusedBottleneck(nn.Module):
+    """Eval BN + ReLU + 1x1x1 conv in one call of the fused op.
+
+    State mirrors the JAX ``fused1`` layout: ``scale``, ``bias`` and
+    ``kernel`` (Cin, Cout), plus the running ``mean`` and ``var``.
+    ``convert.py`` fills it from either JAX layout (``fused1`` or the
+    unfused ``norm1`` + ``conv1``)."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(in_channels))
+        self.bias = nn.Parameter(torch.zeros(in_channels))
+        self.kernel = nn.Parameter(torch.empty(in_channels, out_channels))
+        nn.init.kaiming_normal_(self.kernel.T, nonlinearity="relu")
+        self.register_buffer("mean", torch.zeros(in_channels))
+        self.register_buffer("var", torch.ones(in_channels))
+
+    def forward(self, x):
+        """x: (N, C, D, H, W), channels-last in memory."""
+        require_eval(self)
+        y = bn_relu_conv1x1(
+            x.permute(0, 2, 3, 4, 1), self.scale, self.bias, self.mean,
+            self.var, self.kernel.to(x.dtype), eps=BN_EPS,
+        )
+        return y.permute(0, 4, 1, 2, 3)
+
+
+class DenseLayer(nn.Module):
+    def __init__(self, in_channels: int, growth_rate: int, bn_size: int):
+        super().__init__()
+        self.fused1 = FusedBottleneck(in_channels, bn_size * growth_rate)
+        self.norm2 = BatchNorm(bn_size * growth_rate)
+        self.conv2 = conv(bn_size * growth_rate, growth_rate, 3, padding=1)
+
+    def forward(self, x):
+        y = self.conv2(F.relu(self.norm2(self.fused1(x))))
+        return torch.cat([x, y.contiguous(memory_format=CHANNELS_LAST)], dim=1)
+
+
+class Transition(nn.Module):
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.norm = BatchNorm(in_channels)
+        self.conv = conv(in_channels, out_channels, 1)
+
+    def forward(self, x):
+        return avg_pool(self.conv(F.relu(self.norm(x))), 2, 2)
+
+
+class DenseNet(nn.Module):
+    """3D DenseNet with backbone / features / class_layers split.
+
+    ``out_channels=None`` builds no ``class_layers`` head: inside the
+    multimodal model the image encoder only contributes its features, and
+    the JAX package's encoder then has no ``out`` parameters either."""
+
+    def __init__(
+        self,
+        in_channels: int = 2,
+        out_channels: int | None = 2,
+        feature_channels: int = 12,
+        init_features: int = 64,
+        growth_rate: int = 32,
+        block_config: Sequence[int] = (6, 12, 24, 16),
+        bn_size: int = 4,
+    ):
+        super().__init__()
+        self.block_config = tuple(block_config)
+        self.conv0 = conv(in_channels, init_features, 7, stride=2, padding=3)
+        self.norm0 = BatchNorm(init_features)
+        ch = init_features
+        for i, num_layers in enumerate(self.block_config):
+            for j in range(num_layers):
+                self.add_module(f"block{i + 1}_layer{j + 1}",
+                                DenseLayer(ch, growth_rate, bn_size))
+                ch += growth_rate
+            if i == len(self.block_config) - 1:
+                self.norm5 = BatchNorm(ch)
+            else:
+                self.add_module(f"transition{i + 1}", Transition(ch, ch // 2))
+                ch //= 2
+        self.feature_layer = nn.Linear(ch, feature_channels)
+        if out_channels is not None:
+            self.out = nn.Linear(feature_channels, out_channels)
+
+    def backbone(self, x):
+        """x: (N, C, D, H, W) channels-last -> final BN'd feature map."""
+        x = max_pool(F.relu(self.norm0(self.conv0(x))), 3, 2, 1)
+        for i, num_layers in enumerate(self.block_config):
+            # pooling may hand back another memory format; the dense block's
+            # bottlenecks need channels-last, so restore it once per block
+            x = x.contiguous(memory_format=CHANNELS_LAST)
+            for j in range(num_layers):
+                x = getattr(self, f"block{i + 1}_layer{j + 1}")(x)
+            if i == len(self.block_config) - 1:
+                x = self.norm5(x)
+            else:
+                x = getattr(self, f"transition{i + 1}")(x)
+        return x
+
+    def features(self, x):
+        return self.feature_layer(global_avg_pool(F.relu(x)))
+
+    def class_layers(self, x):
+        return self.out(x)
+
+    def forward(self, x, return_features: bool = False):
+        """x: (N, D, H, W, C), the JAX package's layout."""
+        require_eval(self)
+        feats = self.features(self.backbone(x.permute(0, 4, 1, 2, 3)))
+        return feats if return_features else self.class_layers(feats)
+
+
+def densenet121(**kw) -> DenseNet:
+    return DenseNet(block_config=(6, 12, 24, 16), **kw)
+
+
+def tiny_densenet(**kw) -> DenseNet:
+    return DenseNet(block_config=(6, 12, 4), **kw)

@@ -1,0 +1,141 @@
+"""mmnn_sts_torch.ops.fused_dense vs the JAX package's Pallas kernel
+(ops/pallas/fused_dense.py, run in interpret mode on the CPU, as
+tests/test_pallas.py runs it).
+
+On the CPU the port's wrapper takes the plain PyTorch version, so these tests
+hold that plain version against the Pallas kernel. The CUDA kernel itself is
+held against the plain version on the card (the ``cuda`` tests below, and
+chip_smoke.py over the whole DenseNet121 shape inventory). JAX is imported
+inside a fixture, so that the ``cuda`` tests also run where JAX is not
+installed (``--noconftest`` keeps tests/conftest.py, which imports JAX, out):
+``python -m pytest tests/test_torch_fused_dense.py -m cuda --noconftest``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from mmnn_sts_torch.ops import fused_dense as fd
+
+torch.set_num_threads(1)
+
+# (m, cin, cout, random affine): the test_pallas.py shapes — a tiled one and
+# a ragged one (M not a multiple of the Pallas tile, Cin/Cout narrow)
+SHAPES = [(96, 32, 16, True), (700, 16, 8, False)]
+
+
+@pytest.fixture(scope="module")
+def jax_fd():
+    pytest.importorskip("jax")
+    from mmnn_sts_tpu.ops.pallas import fused_dense
+
+    return fused_dense
+
+
+def _operands(rng, m, cin, cout, random_affine):
+    x = rng.normal(size=(m, cin)).astype(np.float32)
+    if random_affine:
+        a = rng.uniform(0.5, 2.0, cin).astype(np.float32)
+        b = rng.normal(size=cin).astype(np.float32)
+    else:
+        a = np.ones(cin, np.float32)
+        b = np.zeros(cin, np.float32)
+    w = rng.normal(size=(cin, cout)).astype(np.float32)
+    return x, a, b, w
+
+
+@pytest.mark.parametrize("m,cin,cout,random_affine", SHAPES)
+def test_reference_matches_pallas_kernel(jax_fd, rng, m, cin, cout, random_affine):
+    import jax.numpy as jnp
+
+    x, a, b, w = _operands(rng, m, cin, cout, random_affine)
+    want = jax_fd.fused_bn_relu_matmul(
+        jnp.asarray(x), jnp.asarray(a), jnp.asarray(b), jnp.asarray(w), True)
+    got = fd.fused_bn_relu_matmul_reference(
+        torch.from_numpy(x), torch.from_numpy(a), torch.from_numpy(b),
+        torch.from_numpy(w))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_reference_matches_pallas_kernel_bf16(jax_fd, rng):
+    """bf16 x/W: h is rounded to bf16 before an f32-accumulated product and
+    the output is rounded to bf16 on both sides. Tolerance: a few bf16 ulps
+    (2^-8 relative), since the two sums may round differently."""
+    import jax.numpy as jnp
+
+    x, a, b, w = _operands(rng, 96, 32, 16, True)
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    wb = jnp.asarray(w).astype(jnp.bfloat16)
+    want = jax_fd.fused_bn_relu_matmul(xb, jnp.asarray(a), jnp.asarray(b),
+                                       wb, True)
+    got = fd.fused_bn_relu_matmul_reference(
+        torch.from_numpy(x).bfloat16(), torch.from_numpy(a),
+        torch.from_numpy(b), torch.from_numpy(w).bfloat16())
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               rtol=2e-2, atol=2e-2)
+
+
+def test_wrapper_on_cpu_is_the_plain_version(rng):
+    x, a, b, w = (torch.from_numpy(t) for t in _operands(rng, 64, 8, 4, True))
+    before = fd.fused_bn_relu_matmul.launches
+    got = fd.fused_bn_relu_matmul(x, a, b, w)
+    assert torch.equal(got, fd.fused_bn_relu_matmul_reference(x, a, b, w))
+    assert fd.fused_bn_relu_matmul.launches == before  # no kernel launched
+
+
+def test_bn_relu_conv1x1_matches_jax(jax_fd, rng):
+    import jax.numpy as jnp
+
+    n, s, cin, cout = 2, 4, 8, 12
+    x = rng.normal(size=(n, s, s, s, cin)).astype(np.float32)
+    scale = rng.uniform(0.5, 2.0, cin).astype(np.float32)
+    bias = rng.normal(size=cin).astype(np.float32)
+    mean = rng.normal(size=cin).astype(np.float32)
+    var = rng.uniform(0.5, 2.0, cin).astype(np.float32)
+    w = rng.normal(size=(cin, cout)).astype(np.float32)
+    want = jax_fd.bn_relu_conv1x1(*(jnp.asarray(t) for t in
+                                    (x, scale, bias, mean, var, w)),
+                                  interpret=True)
+    got = fd.bn_relu_conv1x1(*(torch.from_numpy(t) for t in
+                               (x, scale, bias, mean, var, w)))
+    assert got.shape == (n, s, s, s, cout)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_bn_relu_conv1x1_refuses_a_copying_layout(rng):
+    """A channels-first tensor is not viewable as (M, Cin): the op raises
+    instead of copying it."""
+    x = torch.randn(2, 8, 4, 4, 4).permute(0, 2, 3, 4, 1)  # not viewable
+    with pytest.raises(RuntimeError):
+        fd.bn_relu_conv1x1(x, torch.ones(8), torch.zeros(8), torch.zeros(8),
+                           torch.ones(8), torch.randn(8, 4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("m,cin,cout", [(96, 32, 16), (700, 16, 8),
+                                        (4096, 224, 128), (8, 992, 128)])
+def test_cuda_kernel_matches_reference(m, cin, cout, dtype, tol):
+    """The CUDA kernel vs the plain version on the card (edges masked on M,
+    K and N). Tolerance: relative to the largest output, fp32 1e-4, bf16
+    2e-2 (output rounded to bf16)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernel has no CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(m, cin, device="cuda", generator=g).to(dtype)
+    a = torch.rand(cin, device="cuda", generator=g) + 0.5
+    b = torch.randn(cin, device="cuda", generator=g)
+    w = (torch.randn(cin, cout, device="cuda", generator=g)
+         * (2.0 / cin) ** 0.5).to(dtype)
+    before = fd.fused_bn_relu_matmul.launches
+    got = fd.fused_bn_relu_matmul(x, a, b, w)
+    torch.cuda.synchronize()
+    assert fd.fused_bn_relu_matmul.launches == before + 1
+    want = fd.fused_bn_relu_matmul_reference(x, a, b, w)
+    err = (got.float() - want.float()).abs().max() / want.float().abs().max()
+    assert got.dtype == dtype and err <= tol
