@@ -9,12 +9,22 @@ Phases; any failure is an uncaught exception and a nonzero exit:
 2. Build: compiles every CUDA kernel of the port from the sources in this
    checkout (one nvcc per source, all at once) and prints the seconds taken.
 3. Kernel: calls fused_bn_relu_matmul on the card at every (M, Cin) shape of
-   DenseNet121's 58 bottlenecks at 64^3, for batch 1 and 8, in float32 and
-   bfloat16, and holds each result against the plain PyTorch version on the
-   same inputs: max |kernel - plain| / max |plain| <= 1e-4 in float32 (sums
-   in another order) and 2e-2 in bfloat16 (output rounded to bfloat16).
-   Times both with CUDA events (inputs warm in L2), beside the least time
-   the card could take for the same work.
+   DenseNet121's 58 bottlenecks at 64^3, for every batch bucket of the
+   servable (1, 2, 4, 8, 16, 32), in float32 and bfloat16, and holds each
+   result against the plain PyTorch version on the same inputs: max
+   |kernel - plain| / max |plain| <= 1e-4 in float32 (sums in another
+   order) and 2e-2 in bfloat16 (output rounded to bfloat16). Each shape
+   also must give the same bits in two calls, and with a NaN in x the
+   kernel's NaN rows must be the plain version's. Prints each shape's
+   launch plan (tile, K-split, CTAs). Times the kernel, the plain version
+   and torch.matmul of the product alone (a yardstick, not the same
+   function) with CUDA events, inputs warm in L2: device time (calls
+   queued behind a sleeping kernel), paced time (no sleep: the host's
+   launch cost shows where it exceeds the device's) and the host's time
+   to enqueue a call, beside the least time the card could take.
+   Then times every launch plan the kernel takes at every shape of every
+   bucket in float32, each checked against the plain version, beside the
+   plan launch_plan picks (chiprun_out/plan_sweep.jsonl).
 4. Serve: the flagship model at full width (DenseNet121-3D at 64^3 x 2ch +
    the 11-feature clinical MLP, blend heads), with weights drawn with numpy
    from --seed in the JAX package's flat key layout (unfused names) and
@@ -28,8 +38,9 @@ Phases; any failure is an uncaught exception and a nonzero exit:
    TF32 on both sides) and, for batch 1, the same servable on the CPU
    (<= 1e-2 * max(1, max |cpu|): TF32 convolutions against float32 ones).
    Then one batch-8 forward of the servable (no HTTP) is timed on the host
-   clock and traced with torch.profiler: CUDA kernel time by name, and the
-   device's busy share of the forward.
+   clock, the host time of the fused op's calls in it is read, and it is
+   traced with torch.profiler: CUDA kernel time by name, and the device's
+   busy share of the forward.
 5. Prints the kernels' JSON line, the card's line, and last
    {"ok": true, "device": {...}}.
 
@@ -39,6 +50,7 @@ Per-shape kernel results go to chiprun_out/chip_smoke_kernels.jsonl.
 from __future__ import annotations
 
 import argparse
+import functools
 import io
 import json
 import subprocess
@@ -61,6 +73,7 @@ PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 TOLERANCE = {"float32": 1e-4, "bfloat16": 2e-2}
 BOTTLENECK_OUT = 128  # bn_size 4 x growth 32
 MEASURED_ROUNDS = 5  # timed repeats after one warm-up
+SLEEP_CYCLES = 10_000_000  # ~6 ms at 1.75 GHz: longer than queuing 20 calls
 # how profile_forward sorts kernel names into kinds (first match wins)
 PROFILE_KINDS = (
     ("fused_bn_relu_matmul kernel", ("fused_bn_relu_matmul",)),
@@ -68,18 +81,6 @@ PROFILE_KINDS = (
     ("cuDNN convolutions", ("xmma", "cudnn", "conv", "implicit_gemm")),
     ("copies, concat", ("copy", "Cat")),
 )
-
-
-def densenet121_bottlenecks(batch: int, size: int = 64):
-    """(block, M, Cin) of each of DenseNet121's 58 bottleneck calls."""
-    shapes, ch, side = [], 64, size // 4  # stem stride 2 + max pool stride 2
-    for block, layers in enumerate((6, 12, 24, 16), start=1):
-        for _ in range(layers):
-            shapes.append((block, batch * side ** 3, ch))
-            ch += 32
-        ch //= 2
-        side //= 2
-    return shapes
 
 
 def bound_ms(m: int, k: int, n: int, dtype: str) -> tuple[float, str]:
@@ -92,71 +93,214 @@ def bound_ms(m: int, k: int, n: int, dtype: str) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def cuda_ms(fn, iters: int = 20) -> float:
+def time_calls(fn, iters: int = 20) -> tuple[float, float, float]:
+    """Three readings of one call of ``fn``, in ms:
+
+    device: CUDA events around ``iters`` calls enqueued behind a sleeping
+        kernel, so that the host has queued them all before the first
+        starts (the host's launch cost is not in it);
+    host: the host's time to check and enqueue one call, from that loop;
+    paced: the same events around ``iters`` back-to-back calls with no
+        sleep, so that the host paces them where it is the slower side
+        (how the kernel was timed before the sleep was added)."""
     fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3 / iters
+    end.record()
+    end.synchronize()
+    device = start.elapsed_time(end) / iters
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / iters
+    return device, host, start.elapsed_time(end) / iters
+
+
+def operands(gen, m: int, k: int, dtype):
+    """x, a, b, w of one (M, K) x (K, 128) bottleneck call, drawn from
+    ``gen`` on the card: x normal, a in [0.5, 1.5), b normal, w at He
+    scale."""
+    n = BOTTLENECK_OUT
+    x = torch.randn(m, k, device="cuda", generator=gen).to(dtype)
+    a = torch.rand(k, device="cuda", generator=gen) + 0.5
+    b = torch.randn(k, device="cuda", generator=gen)
+    w = (torch.randn(k, n, device="cuda", generator=gen)
+         * (2.0 / k) ** 0.5).to(dtype)
+    return x, a, b, w
+
+
+def check_call(fd, x, a, b, w, tol: float, where: str):
+    """The kernel against the plain version on (x, a, b, w), plus the
+    properties the plain version does not show: two calls give the same
+    bits, and a NaN entry of x gives a NaN output row where the plain
+    version's is. Raises on a failure; returns the max abs error and the
+    error relative to the largest output."""
+    got = fd.fused_bn_relu_matmul(x, a, b, w)
+    again = fd.fused_bn_relu_matmul(x, a, b, w)
+    want = fd.fused_bn_relu_matmul_reference(x, a, b, w)
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs().max().item()
+    rel = diff / max(want.float().abs().max().item(), 1e-30)
+    if got.dtype != x.dtype or got.shape != want.shape or not rel <= tol:
+        raise AssertionError(f"kernel disagrees at {where}: max abs "
+                             f"{diff:.3e}, rel {rel:.3e}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"two calls differ at {where}")
+    row = min(3, x.shape[0] - 1)
+    x_nan = x.clone()
+    x_nan[row, 0] = float("nan")
+    got_n = fd.fused_bn_relu_matmul(x_nan, a, b, w).float()
+    want_n = fd.fused_bn_relu_matmul_reference(x_nan, a, b, w).float()
+    nan_rows = want_n.isnan().any(1)
+    ok = bool(nan_rows[row]) and torch.equal(got_n.isnan().any(1), nan_rows)
+    if ok and not nan_rows.all():
+        g, wn = got_n[~nan_rows], want_n[~nan_rows]
+        ok = (g - wn).abs().max().item() <= tol * max(
+            wn.abs().max().item(), 1e-30)
+    if not ok:
+        raise AssertionError(f"with a NaN in x row {row}, the kernel's NaN "
+                             f"rows or other rows differ from the plain "
+                             f"version's at {where}")
+    return diff, rel
 
 
 def kernel_phase(fd, seed: int, out_dir: Path):
+    """Every (M, Cin) of DenseNet121's bottlenecks at every batch bucket of
+    the servable, in float32 and bfloat16: checked (check_call) and timed
+    (time_calls), with the launch plan and the bound. Returns the rows."""
+    from mmnn_sts_torch.infer.export import BATCH_SIZES
+    from mmnn_sts_torch.models.densenet import bottleneck_shapes, densenet121
+
+    model, n = densenet121(), BOTTLENECK_OUT
+    sms = fd.sm_count(torch.cuda.current_device())
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    for batch in (1, 8):
+    for batch in BATCH_SIZES:
         for dtype_name, dtype in (("float32", torch.float32),
                                   ("bfloat16", torch.bfloat16)):
-            for block, m, k in densenet121_bottlenecks(batch):
-                n = BOTTLENECK_OUT
-                x = torch.randn(m, k, device="cuda", generator=gen).to(dtype)
-                a = torch.rand(k, device="cuda", generator=gen) + 0.5
-                b = torch.randn(k, device="cuda", generator=gen)
-                w = (torch.randn(k, n, device="cuda", generator=gen)
-                     * (2.0 / k) ** 0.5).to(dtype)
-                got = fd.fused_bn_relu_matmul(x, a, b, w)
-                want = fd.fused_bn_relu_matmul_reference(x, a, b, w)
-                torch.cuda.synchronize()
-                diff = (got.float() - want.float()).abs().max().item()
-                scale = want.float().abs().max().item()
-                rel = diff / max(scale, 1e-30)
-                if got.dtype != dtype or got.shape != (m, n) or not (
-                        rel <= TOLERANCE[dtype_name]):
-                    raise AssertionError(
-                        f"kernel disagrees at B={batch} M={m} Cin={k} "
-                        f"{dtype_name}: max abs {diff:.3e}, rel {rel:.3e}")
+            for block, m, k in bottleneck_shapes(model, batch):
+                x, a, b, w = operands(gen, m, k, dtype)
+                diff, rel = check_call(
+                    fd, x, a, b, w, TOLERANCE[dtype_name],
+                    f"B={batch} M={m} Cin={k} {dtype_name}")
+                h = torch.relu(x.float() * a + b).to(dtype)
+                bm, bn, split_k = fd.launch_plan(m, k, n, sms)
+                ms, host_ms, paced_ms = time_calls(
+                    lambda: fd.fused_bn_relu_matmul(x, a, b, w))
+                plain_ms, plain_host_ms, plain_paced_ms = time_calls(
+                    lambda: fd.fused_bn_relu_matmul_reference(x, a, b, w))
                 bound, bound_by = bound_ms(m, k, n, dtype_name)
                 rows.append(dict(
                     batch=batch, dtype=dtype_name, block=block, m=m, cin=k,
-                    cout=n, max_abs_err=diff, max_rel_err=rel,
-                    ms=cuda_ms(lambda: fd.fused_bn_relu_matmul(x, a, b, w)),
-                    plain_ms=cuda_ms(lambda: fd.fused_bn_relu_matmul_reference(x, a, b, w)),
+                    cout=n, bm=bm, bn=bn, split_k=split_k,
+                    ctas=fd.plan_ctas(m, n, bm, bn, split_k),
+                    max_abs_err=diff, max_rel_err=rel, bit_equal=True,
+                    nan_rows_match=True, ms=ms, paced_ms=paced_ms,
+                    host_us=host_ms * 1e3, plain_ms=plain_ms,
+                    plain_paced_ms=plain_paced_ms,
+                    plain_host_us=plain_host_ms * 1e3,
+                    # the product alone, not the same function: a yardstick
+                    gemm_ms=time_calls(lambda: torch.matmul(h, w))[0],
                     bound_ms=bound, bound_by=bound_by,
                 ))
     out_dir.mkdir(parents=True, exist_ok=True)
     with open(out_dir / "chip_smoke_kernels.jsonl", "w") as f:
         for r in rows:
             f.write(json.dumps(r) + "\n")
-    print("kernel fused_bn_relu_matmul vs plain, per block "
-          "(sum of ms over the block's calls; max_rel_err limit "
+    print("kernel fused_bn_relu_matmul vs plain, per block (sums over the "
+          "block's calls: device ms, calls queued behind a sleep; paced ms, "
+          "no sleep; host us to enqueue; max_rel_err limit "
           f"{TOLERANCE['float32']:.0e} float32, {TOLERANCE['bfloat16']:.0e} "
-          "bfloat16):")
+          "bfloat16; every shape also bit-equal over two calls and NaN rows "
+          "as the plain version's; gemm_ms: torch.matmul(h, w) on a "
+          "precomputed h, the product alone, not the same function):")
     groups = {}
     for r in rows:
         groups.setdefault((r["batch"], r["dtype"], r["block"]), []).append(r)
     for (batch, dtype, block), rs in groups.items():
+        tot = {key: sum(r[key] for r in rs) for key in (
+            "ms", "paced_ms", "host_us", "plain_ms", "plain_paced_ms",
+            "plain_host_us", "gemm_ms", "bound_ms")}
         print(f"  B={batch} {dtype:8s} block{block} M={rs[0]['m']:6d} "
               f"Cin={rs[0]['cin']}..{rs[-1]['cin']} n={len(rs):2d} "
               f"max_abs_err={max(r['max_abs_err'] for r in rs):.2e} "
               f"max_rel_err={max(r['max_rel_err'] for r in rs):.2e} "
-              f"kernel_ms={sum(r['ms'] for r in rs):.4f} "
-              f"plain_ms={sum(r['plain_ms'] for r in rs):.4f} "
-              f"bound_ms={sum(r['bound_ms'] for r in rs):.4f} "
-              f"({rs[0]['bound_by']})")
+              f"kernel_ms={tot['ms']:.4f} paced {tot['paced_ms']:.4f} "
+              f"host_us {tot['host_us']:.1f} "
+              f"plain_ms={tot['plain_ms']:.4f} paced "
+              f"{tot['plain_paced_ms']:.4f} host_us "
+              f"{tot['plain_host_us']:.1f} gemm_ms={tot['gemm_ms']:.4f} "
+              f"bound_ms={tot['bound_ms']:.4f} ({rs[0]['bound_by']})")
+        if dtype == "float32":  # bfloat16 takes the same plans
+            print("    plan Cin:BMxBN/split(CTAs) " + " ".join(
+                f"{r['cin']}:{r['bm']}x{r['bn']}/{r['split_k']}({r['ctas']})"
+                for r in rs))
+    for batch in BATCH_SIZES:
+        rs = [r for r in rows if r["batch"] == batch and r["dtype"] == "float32"]
+        print(f"  B={batch} float32, {len(rs)} calls: kernel_ms "
+              f"{sum(r['ms'] for r in rs):.4f} paced "
+              f"{sum(r['paced_ms'] for r in rs):.4f} plain_ms "
+              f"{sum(r['plain_ms'] for r in rs):.4f} paced "
+              f"{sum(r['plain_paced_ms'] for r in rs):.4f} gemm_ms "
+              f"{sum(r['gemm_ms'] for r in rs):.4f} bound_ms "
+              f"{sum(r['bound_ms'] for r in rs):.4f}")
     return rows
+
+
+def sweep_phase(fd, seed: int, out_dir: Path):
+    """Every launch plan the kernel takes (each tile of ``fd.TILES`` with
+    every K-split ``fd.max_split`` admits) at every (M, Cin) of every batch
+    bucket in float32: each result held against the plain version, and
+    its device time. Prints, per block, the sum of ``launch_plan``'s plans
+    beside the sum of each shape's fastest plan; every timing goes to
+    chiprun_out/plan_sweep.jsonl."""
+    from mmnn_sts_torch.infer.export import BATCH_SIZES
+    from mmnn_sts_torch.models.densenet import bottleneck_shapes, densenet121
+
+    model, n = densenet121(), BOTTLENECK_OUT
+    sms = fd.sm_count(torch.cuda.current_device())
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for batch in BATCH_SIZES:
+        for block, m, k in bottleneck_shapes(model, batch):
+            x, a, b, w = operands(gen, m, k, torch.float32)
+            want = fd.fused_bn_relu_matmul_reference(x, a, b, w)
+            chosen = fd.launch_plan(m, k, n, sms)
+            for plan in ((bm, bn, split) for bm, bn in fd.TILES
+                         for split in range(1, fd.max_split(k) + 1)):
+                got = fd._launch(x, a, b, w, plan)
+                rel = ((got - want).abs().max() / want.abs().max()).item()
+                if not rel <= TOLERANCE["float32"]:
+                    raise AssertionError(f"plan {plan} at M={m} Cin={k}: "
+                                         f"rel err {rel:.2e}")
+                rows.append(dict(
+                    batch=batch, block=block, m=m, cin=k, bm=plan[0],
+                    bn=plan[1], split_k=plan[2],
+                    ctas=fd.plan_ctas(m, n, *plan), chosen=plan == chosen,
+                    ms=time_calls(lambda: fd._launch(x, a, b, w, plan))[0]))
+    with open(out_dir / "plan_sweep.jsonl", "w") as f:
+        f.writelines(json.dumps(r) + "\n" for r in rows)
+    print("sweep float32: per block, sum of device ms over its calls with "
+          "launch_plan's plans and with each shape's fastest plan")
+    blocks = {}
+    for r in rows:
+        blocks.setdefault((r["batch"], r["block"]), {}).setdefault(
+            r["cin"], []).append(r)
+    for (batch, block), shapes in blocks.items():
+        chosen = sum(r["ms"] for rs in shapes.values() for r in rs
+                     if r["chosen"])
+        best = [min(rs, key=lambda r: r["ms"]) for rs in shapes.values()]
+        print(f"  B={batch} block{block}: chosen {chosen:.4f} ms, fastest "
+              f"{sum(r['ms'] for r in best):.4f} ms; fastest plans " + " ".join(
+                  f"{r['cin']}:{r['bm']}x{r['bn']}/{r['split_k']}({r['ctas']})"
+                  for r in best))
 
 
 def random_flat_weights(model, seed: int, to_jax_flat) -> dict:
@@ -303,6 +447,7 @@ def profile_forward(model, arrays, top: int = 12):
         model(arrays)  # ends in a device -> host copy of the answer
         walls.append((time.perf_counter() - t0) * 1e3)
     wall = float(np.median(walls[1:]))
+    print_host_calls(model, arrays, wall)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         model(arrays)
@@ -324,6 +469,41 @@ def profile_forward(model, arrays, top: int = 12):
     for e in sorted(kernels, key=lambda e: -e.device_time_total)[:top]:
         print(f"  {e.device_time_total / 1e3:8.3f} ms {e.count:4d}x "
               f"{e.key[:110]}")
+
+
+def print_host_calls(model, arrays, wall: float):
+    """Host time of the fused op's calls in one served forward (a
+    ServingModel call): each call of the wrapper
+    ``fused_dense.fused_bn_relu_matmul`` (checks, plan, ctypes launch) and
+    of the op ``densenet.bn_relu_conv1x1`` (the BN fold, then the wrapper)
+    timed on the host clock. Nothing waits for the device there, so this
+    is the time to check and enqueue, against the forward's ``wall`` ms."""
+    from mmnn_sts_torch.models import densenet
+    from mmnn_sts_torch.ops import fused_dense
+
+    spent = {}
+
+    def timed(module, name):
+        orig = getattr(module, name)
+        spent[name] = []
+
+        @functools.wraps(orig)  # carries a wrapper's launch count along
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return orig(*args, **kw)
+            finally:
+                spent[name].append(time.perf_counter() - t0)
+
+        return mock.patch.object(module, name, call)
+
+    with timed(fused_dense, "fused_bn_relu_matmul"), \
+            timed(densenet, "bn_relu_conv1x1"):
+        model(arrays)
+    for name, ts in spent.items():
+        print(f"host time in the served forward: {name} {len(ts)} calls, "
+              f"mean {np.mean(ts) * 1e6:.1f} us, sum {sum(ts) * 1e3:.3f} ms "
+              f"({sum(ts) * 1e3 / wall:.1%} of the {wall:.2f} ms wall)")
 
 
 def main(argv=None) -> int:
@@ -361,6 +541,7 @@ def main(argv=None) -> int:
             print(log.read_text().strip())
 
     rows = kernel_phase(fd, args.seed, REPO / "chiprun_out")
+    sweep_phase(fd, args.seed, REPO / "chiprun_out")
     with tempfile.TemporaryDirectory() as tmp:
         launches = serve_phase(fd, args.seed, Path(tmp))
 

@@ -2,10 +2,11 @@
 
 Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` (Hopper)
 into a shared library with a plain C interface, loaded with ``ctypes``. The
-library's name carries a hash of its source, so an edited source is rebuilt
-and a stale library is never loaded. Builds go to ``_build/`` beside this
-file (listed in ``.gitignore``). No PyTorch header is compiled, so a build
-takes seconds, and no ``ninja`` is needed.
+library's name carries a hash of every file under ``csrc/`` and of the nvcc
+flags, so an edited source or header is rebuilt and a stale library is never
+loaded. Builds go to ``_build/`` beside this file (listed in ``.gitignore``).
+No PyTorch header is compiled, so a build takes seconds, and no ``ninja`` is
+needed.
 
 Nothing is built when this module is imported: the first CUDA call of a
 kernel's wrapper builds it, and ``build_all`` builds every source at once,
@@ -44,9 +45,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """Where the library built from ``csrc/<name>.cu`` lives. Its name hashes
+    the flags and every file under ``csrc/`` (path and bytes), since a source
+    may include any header there."""
+    h = hashlib.sha256("\0".join(NVCC_FLAGS).encode())
+    for path in sorted(p for p in CSRC.rglob("*") if p.is_file()):
+        h.update(str(path.relative_to(CSRC)).encode() + b"\0")
+        h.update(path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names=None) -> dict[str, Path]:

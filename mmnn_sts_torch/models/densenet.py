@@ -150,6 +150,22 @@ class DenseNet(nn.Module):
         return feats if return_features else self.class_layers(feats)
 
 
+def bottleneck_shapes(model: DenseNet, batch: int, size: int = 64):
+    """(block, M, Cin) of each bottleneck call (one ``bn_relu_conv1x1``) of
+    ``model``'s forward on ``batch`` cubes of side ``size``, in call order:
+    Cin is the layer's input channels, M the voxels of its block's feature
+    map (the stem's stride 2 and the max pool's, then a halving per
+    transition)."""
+    shapes = []
+    for i, num_layers in enumerate(model.block_config):
+        side = size // 4 >> i
+        for j in range(num_layers):
+            layer = getattr(model, f"block{i + 1}_layer{j + 1}")
+            shapes.append((i + 1, batch * side ** 3,
+                           layer.fused1.kernel.shape[0]))
+    return shapes
+
+
 def densenet121(**kw) -> DenseNet:
     return DenseNet(block_config=(6, 12, 24, 16), **kw)
 

@@ -8,21 +8,79 @@ eval BatchNorm + ReLU before it is an elementwise prologue on the same tile:
                                 b = bias - mean * a
 
 On a CUDA tensor ``fused_bn_relu_matmul`` launches the hand-written kernel
-(``kernels/csrc/fused_bn_relu_matmul.cu``); on a CPU tensor it computes the
-plain PyTorch version, ``fused_bn_relu_matmul_reference``. Nothing falls
-back: a build or launch failure raises. Forward only; the backward comes
-with the training path.
+(``kernels/csrc/fused_bn_relu_matmul.cu``) with the tile and K-split that
+``launch_plan`` picks for the shape; on a CPU tensor it computes the plain
+PyTorch version, ``fused_bn_relu_matmul_reference``. Nothing falls back: a
+build or launch failure raises. Forward only; the backward comes with the
+training path.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from ..kernels import build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# The kernel's output tiles (BM, BN), largest first (fused_bn_relu_matmul.cu,
+# ``dispatch``). A CTA has 128 threads, but 256 for 128 x 128, 64 for 32 x 32
+# and 32 for 16 x 32.
+TILES = ((128, 128), (64, 128), (64, 64), (32, 64), (32, 32), (16, 32))
+BK = 32  # depth of one chunk of K; a K-slice is whole chunks
+MAX_SPLIT = 8  # CTAs in a cluster: the portable cluster size
+RESIDENT_PER_SM = 4  # CTAs of 128 threads an SM runs at once
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def plan_ctas(m: int, n: int, bm: int, bn: int, split_k: int) -> int:
+    """CTAs in the grid of a launch with tile (bm, bn) and split_k."""
+    return _cdiv(m, bm) * _cdiv(n, bn) * split_k
+
+
+def max_split(k: int) -> int:
+    """The deepest K-split a launch may take: 1 where K < 128, else as many
+    slices as keep each at least two chunks (64) deep, up to MAX_SPLIT."""
+    return 1 if k < 4 * BK else min(MAX_SPLIT, k // (2 * BK))
+
+
+@functools.cache
+def sm_count(device: int) -> int:
+    """Streaming multiprocessors of CUDA device ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.cache
+def launch_plan(m: int, k: int, n: int, sms: int) -> tuple[int, int, int]:
+    """``(bm, bn, split_k)`` for an (M, K) x (K, N) call on a card of ``sms``
+    SMs: the output tile and the number of CTAs of a cluster that share it,
+    each walking 1/split_k of K's 32-wide chunks.
+
+    Where a tile of at least 32 x 64 (4 warps) fills the card (a wave of
+    >= ``sms`` CTAs) without a split, the largest such tile: a finer tile
+    walking all of K alone is slower than a split. Otherwise K is split as
+    deep as ``max_split`` allows (at small M the chain of chunks one CTA
+    walks, not the CTA count, sets the time), with the 32 x 64 tile, or the
+    largest finer one that reaches a wave where 32 x 64 does not; and the
+    split is cut back while the grid would exceed one round of resident
+    CTAs. ``chip_smoke.py`` (its sweep phase) times these choices against
+    every other plan."""
+    split_tiles = TILES[TILES.index((32, 64)):]
+    for bm, bn in TILES[:TILES.index((32, 64)) + 1]:
+        if plan_ctas(m, n, bm, bn, 1) >= sms:
+            return bm, bn, 1
+    split = max_split(k)
+    bm, bn = next((t for t in split_tiles
+                   if plan_ctas(m, n, *t, split) >= sms), split_tiles[0])
+    while split > 1 and plan_ctas(m, n, bm, bn, split) > RESIDENT_PER_SM * sms:
+        split -= 1
+    return bm, bn, split
 
 
 def fused_bn_relu_matmul_reference(x, a, b, w):
@@ -60,14 +118,52 @@ def _check(x, a, b, w):
             raise ValueError(f"fused_bn_relu_matmul: {name} must be contiguous")
     if max(x.shape[0], k, w.shape[1]) >= 2**31:
         raise ValueError("fused_bn_relu_matmul: a dimension exceeds int32")
+    # the kernel copies 16-byte pieces of rows: every row starts on 16 bytes
+    vec = 16 // x.element_size()
+    if k % vec or w.shape[1] % vec:
+        raise ValueError(
+            f"fused_bn_relu_matmul: K and N must be multiples of {vec} for "
+            f"{x.dtype} (rows of whole 16-byte pieces), got K={k}, "
+            f"N={w.shape[1]}"
+        )
+    for name, t in (("x", x), ("a", a), ("b", b), ("w", w)):
+        if t.data_ptr() % 16:
+            raise ValueError(
+                f"fused_bn_relu_matmul: {name} must start on a 16-byte boundary")
 
 
+@functools.cache
 def _launcher():
     fn = build.load("fused_bn_relu_matmul").fused_bn_relu_matmul_launch
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 \
-        + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _launch(x, a, b, w, plan=None):
+    """Check CUDA operands, launch the kernel on the current stream with
+    ``plan`` = (bm, bn, split_k), by default ``launch_plan``'s, and return
+    the (M, N) output. Raises on a refused shape or a failed launch; counts
+    nothing."""
+    _check(x, a, b, w)
+    m, k = x.shape
+    n = w.shape[1]
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    plan = plan or launch_plan(m, k, n, sm_count(x.device.index))
+    rc = _launcher()(
+        _DTYPE_CODES[x.dtype], x.data_ptr(), a.data_ptr(), b.data_ptr(),
+        w.data_ptr(), out.data_ptr(), m, k, n, *plan, x.device.index,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(
+            f"fused_bn_relu_matmul: kernel launch {plan} failed with CUDA "
+            f"error {rc}"
+        )
+    return out
 
 
 def fused_bn_relu_matmul(x, a, b, w):
@@ -75,28 +171,17 @@ def fused_bn_relu_matmul(x, a, b, w):
     float32; w: (K, N) in x's dtype. Returns (M, N) in x's dtype.
 
     CPU tensors take the plain version. CUDA tensors launch the kernel on
-    the current stream and add one to ``fused_bn_relu_matmul.launches``.
+    the current stream with ``launch_plan``'s plan and add one to
+    ``fused_bn_relu_matmul.launches``; there K and N must be multiples of
+    16 bytes' worth of elements and every operand 16-byte aligned.
     """
     if x.device.type == "cpu":
         return fused_bn_relu_matmul_reference(x, a, b, w)
     if x.device.type != "cuda":
         raise ValueError(f"fused_bn_relu_matmul: unsupported device {x.device}")
-    _check(x, a, b, w)
-    m, k = x.shape
-    n = w.shape[1]
-    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    if out.numel() == 0:
-        return out
-    rc = _launcher()(
-        _DTYPE_CODES[x.dtype], x.data_ptr(), a.data_ptr(), b.data_ptr(),
-        w.data_ptr(), out.data_ptr(), m, k, n, x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(
-            f"fused_bn_relu_matmul: kernel launch failed with CUDA error {rc}"
-        )
-    fused_bn_relu_matmul.launches += 1
+    out = _launch(x, a, b, w)
+    if out.numel():
+        fused_bn_relu_matmul.launches += 1
     return out
 
 

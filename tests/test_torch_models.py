@@ -26,7 +26,7 @@ from mmnn_sts_torch.convert import from_jax_flat, load_jax_npz, to_jax_flat
 from mmnn_sts_torch.exceptions import ConfigurationError
 from mmnn_sts_torch.models import build_model
 from mmnn_sts_torch.models.densenet import (
-    DenseLayer, DenseNet, FusedBottleneck, densenet121)
+    DenseLayer, DenseNet, FusedBottleneck, bottleneck_shapes, densenet121)
 from mmnn_sts_torch.models.mlp import MLP
 from mmnn_sts_torch.models.multimodal import MultiModalModel
 from test_torch_convert import NARROW, jax_flat, jax_variables, randomise
@@ -138,9 +138,9 @@ def test_registry_builds_fused_densenets(name, bottlenecks):
 
 def test_chip_smoke_inventory_is_densenet121s_bottlenecks():
     """chip_smoke.py holds the CUDA kernel against its plain version at the
-    (M, Cin) of every DenseNet121 bottleneck: those must be what the port's
-    DenseNet121 feeds them, in order (checked at 32^3, half the served side
-    length, to keep the CPU forward small)."""
+    (M, Cin) of every DenseNet121 bottleneck (densenet.bottleneck_shapes):
+    those must be what the port's DenseNet121 feeds them, in order (checked
+    at 32^3, half the served side length, to keep the CPU forward small)."""
     sys.path.insert(0, REPO)
     import chip_smoke
 
@@ -155,8 +155,8 @@ def test_chip_smoke_inventory_is_densenet121s_bottlenecks():
     with torch.no_grad():
         model(torch.zeros(1, 32, 32, 32, 2), return_features=True)
     assert seen == [(m, cin) for _, m, cin in
-                    chip_smoke.densenet121_bottlenecks(1, size=32)]
-    assert len(chip_smoke.densenet121_bottlenecks(8)) == 58
+                    bottleneck_shapes(model, 1, size=32)]
+    assert len(bottleneck_shapes(model, 8)) == 58
 
 
 @pytest.mark.parametrize("source", ["defaults", "config.example.yaml"])
