@@ -41,10 +41,36 @@ Phases; any failure is an uncaught exception and a nonzero exit:
    clock, the host time of the fused op's calls in it is read, and it is
    traced with torch.profiler: CUDA kernel time by name, and the device's
    busy share of the forward.
-5. Prints the kernels' JSON line, the card's line, and last
+5. Backward: the fused op under autograd (FusedBnReluMatmul: the kernel
+   forward, then the JAX package's _bwd in plain PyTorch) at DenseNet121's
+   58 bottleneck shapes at microbatch 8, each with a NaN row in x: dx, da,
+   db and dw against torch autograd through the plain version, NaN at the
+   same places and the rest within 1e-4 x max |plain|; its device time
+   beside the plain version's backward, the two products alone and the
+   bound.
+6. Train: the flagship survival superstep (8 microbatches of 8 at 64^3,
+   float32, blend heads, augment off), weights as in the serve phase,
+   synthetic MRI-like volumes, clinical rows and events with tied
+   durations. With cuDNN's TF32 off, one superstep with the kernel and one
+   with the plain op patched in, from the same state with dropout 0: the
+   kernel must launch exactly 58 x 8 = 464 times, and the losses, the
+   predictions and every summed gradient must agree within 1e-2 x
+   max(1, max |plain|); a third superstep with the plain op's product
+   summed in another order shows how far roundoff alone moves them. One
+   superstep with a ragged-tail mask: a finite loss and finite gradients.
+   Then, with cuDNN's TF32 on (PyTorch's
+   default) and dropout 0.2 as configured: a warm-up and 6 timed
+   supersteps (CUDA events; volumes/s, peak memory), one profiled
+   superstep (device busy share, kernel time by kind, the fused kernel's
+   and the backward's shares), two validation steps with their C-indices
+   and two blend updates. The first and the last superstep draw the same
+   dropout masks (the generator is rewound), and the last one's loss on
+   the fixed batch must be below the first's.
+7. Prints the kernels' JSON line, the card's line, and last
    {"ok": true, "device": {...}}.
 
-Per-shape kernel results go to chiprun_out/chip_smoke_kernels.jsonl.
+Per-shape kernel results go to chiprun_out/chip_smoke_kernels.jsonl, the
+backward's to chiprun_out/chip_smoke_backward.jsonl.
 """
 
 from __future__ import annotations
@@ -74,13 +100,24 @@ TOLERANCE = {"float32": 1e-4, "bfloat16": 2e-2}
 BOTTLENECK_OUT = 128  # bn_size 4 x growth 32
 MEASURED_ROUNDS = 5  # timed repeats after one warm-up
 SLEEP_CYCLES = 10_000_000  # ~6 ms at 1.75 GHz: longer than queuing 20 calls
-# how profile_forward sorts kernel names into kinds (first match wins)
+# how kernel_kinds sorts kernel names into kinds (first match wins)
 PROFILE_KINDS = (
     ("fused_bn_relu_matmul kernel", ("fused_bn_relu_matmul",)),
     ("host<->device copies", ("Memcpy", "Memset")),
-    ("cuDNN convolutions", ("xmma", "cudnn", "conv", "implicit_gemm")),
+    ("cuDNN convolutions", ("xmma", "cudnn", "conv", "implicit_gemm",
+                            "wgrad", "dgrad")),
+    ("GEMMs", ("gemm", "cutlass", "cublas")),
     ("copies, concat", ("copy", "Cat")),
 )
+# the flagship superstep: A microbatches of B volumes (SUPER_BATCH_SIZE 64)
+TRAIN_MICRO, TRAIN_BATCH = 8, 8
+TRAIN_TIMED = 6  # timed supersteps after one warm-up
+TRAIN_LR = 1e-2  # OneCycle peak over the short run
+# kernel vs plain-op superstep, x max(1, |plain|) per tensor: roundoff
+# alone exceeds 1e-3 (train_phase's control, the plain op with its product
+# summed in another order, moves conv0's weight gradient by 4e-3 of it)
+TRAIN_TOLERANCE = 1e-2
+VAL_SIZE = 16  # volumes of the synthetic validation split
 
 
 def bound_ms(m: int, k: int, n: int, dtype: str) -> tuple[float, str]:
@@ -451,13 +488,25 @@ def profile_forward(model, arrays, top: int = 12):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         model(arrays)
+    kernel_kinds(prof, wall, f"served forward B="
+                 f"{len(next(iter(arrays.values())))}, wall median of "
+                 f"{MEASURED_ROUNDS} (no profiler)", top)
+
+
+def kernel_kinds(prof, wall: float, what: str, top: int = 12) -> dict:
+    """Print a torch.profiler trace's CUDA kernel time against ``wall`` ms
+    (one stream, so kernels do not overlap and their sum over the wall is
+    the device's busy share), by kind (PROFILE_KINDS) and for the ``top``
+    kernels. Returns kind -> ms, with the total under "busy". Ranges that
+    the trace also keeps on the device's timeline (user annotations, such
+    as the optimizer's step) are not kernels and are left out."""
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     busy = sum(e.device_time_total for e in kernels) / 1e3
-    print(f"profile served forward B={len(next(iter(arrays.values())))}: wall "
-          f"median {wall:.2f} ms of {MEASURED_ROUNDS} (no profiler); CUDA "
-          f"kernels {busy:.2f} ms in {sum(e.count for e in kernels)} launches "
-          f"= device busy {busy / wall:.1%}")
+    print(f"profile {what}: wall {wall:.2f} ms; CUDA kernels {busy:.2f} ms "
+          f"in {sum(e.count for e in kernels)} launches = device busy "
+          f"{busy / wall:.1%}")
     kinds = {}
     for e in kernels:
         kind = next((k for k, marks in PROFILE_KINDS if any(
@@ -465,10 +514,11 @@ def profile_forward(model, arrays, top: int = 12):
         ms, n = kinds.get(kind, (0.0, 0))
         kinds[kind] = (ms + e.device_time_total / 1e3, n + e.count)
     for kind, (ms, n) in sorted(kinds.items(), key=lambda kv: -kv[1][0]):
-        print(f"  {ms:8.3f} ms {n:4d}x [{kind}]")
+        print(f"  {ms:9.3f} ms {n:6d}x [{kind}]")
     for e in sorted(kernels, key=lambda e: -e.device_time_total)[:top]:
-        print(f"  {e.device_time_total / 1e3:8.3f} ms {e.count:4d}x "
+        print(f"  {e.device_time_total / 1e3:9.3f} ms {e.count:6d}x "
               f"{e.key[:110]}")
+    return {"busy": busy, **{k: ms for k, (ms, _) in kinds.items()}}
 
 
 def print_host_calls(model, arrays, wall: float):
@@ -504,6 +554,323 @@ def print_host_calls(model, arrays, wall: float):
         print(f"host time in the served forward: {name} {len(ts)} calls, "
               f"mean {np.mean(ts) * 1e6:.1f} us, sum {sum(ts) * 1e3:.3f} ms "
               f"({sum(ts) * 1e3 / wall:.1%} of the {wall:.2f} ms wall)")
+
+
+def backward_bound_ms(m: int, k: int, n: int) -> tuple[float, str]:
+    """Least time of the float32 backward: x, g, w, a, b read once, dx, da,
+    db, dw written once; the two products (4 M K N) and about 8 M K
+    elementwise operations at the float32 peak."""
+    moved = (2 * m * k + m * n + 2 * k * n + 4 * k) * 4
+    ops = 4 * m * k * n + 8 * m * k
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S["float32"]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def nan_aware_rel_err(got, want, where: str) -> float:
+    """The largest |got - want| over the finite entries, relative to the
+    largest finite |want|; raises unless NaN sits at the same places."""
+    if not torch.equal(got.isnan(), want.isnan()):
+        raise AssertionError(f"NaN entries differ at {where}")
+    fin = ~want.isnan()
+    if not fin.any():
+        return 0.0
+    scale = max(want[fin].abs().max().item(), 1e-30)
+    return (got[fin] - want[fin]).abs().max().item() / scale
+
+
+def backward_phase(fd, seed: int, out_dir: Path):
+    """The fused op under autograd at DenseNet121's 58 bottleneck shapes at
+    microbatch 8 in float32, a NaN in one row of x: the Function's dx, da,
+    db and dw (kernel forward, then fused_bn_relu_matmul_backward) against
+    torch autograd through the plain version (TOLERANCE, relative to the
+    largest finite entry). Times the backward, the plain version's
+    backward and the two products alone (device ms, time_calls). Returns
+    the rows."""
+    from mmnn_sts_torch.models.densenet import bottleneck_shapes, densenet121
+
+    n, tol = BOTTLENECK_OUT, TOLERANCE["float32"]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    rows = []
+    for block, m, k in bottleneck_shapes(densenet121(), TRAIN_BATCH):
+        x, a, b, w = operands(gen, m, k, torch.float32)
+        x[min(3, m - 1), 0] = float("nan")
+        g = torch.randn(m, n, device="cuda", generator=gen)
+        leaves = [t.clone().requires_grad_() for t in (x, a, b, w)]
+        fd.FusedBnReluMatmul.apply(*leaves).backward(g)
+        plain = [t.clone().requires_grad_() for t in (x, a, b, w)]
+        out = fd.fused_bn_relu_matmul_reference(*plain)
+        out.backward(g, retain_graph=True)
+        torch.cuda.synchronize()
+        errs = {name: nan_aware_rel_err(t.grad, p.grad, f"{name} M={m} "
+                                        f"Cin={k}")
+                for name, t, p in zip(("dx", "da", "db", "dw"), leaves, plain)}
+        if not max(errs.values()) <= tol:
+            raise AssertionError(f"backward disagrees at M={m} Cin={k}: "
+                                 f"{errs}")
+        bound, bound_by = backward_bound_ms(m, k, n)
+        rows.append(dict(
+            block=block, m=m, cin=k, max_rel_err=max(errs.values()),
+            ms=time_calls(lambda: fd.fused_bn_relu_matmul_backward(
+                x, a, b, w, g))[0],
+            plain_ms=time_calls(lambda: torch.autograd.grad(
+                out, plain, g, retain_graph=True))[0],
+            mm_ms=time_calls(lambda: (torch.matmul(g, w.T),
+                                      torch.matmul(x.T, g)))[0],
+            bound_ms=bound, bound_by=bound_by))
+    with open(out_dir / "chip_smoke_backward.jsonl", "w") as f:
+        f.writelines(json.dumps(r) + "\n" for r in rows)
+    print(f"backward of the fused op (kernel forward + _bwd) vs autograd of "
+          f"the plain version, B={TRAIN_BATCH} float32, a NaN row per shape, "
+          f"max_rel_err limit {tol:.0e}; device ms summed per block (mm_ms: "
+          "the two products alone):")
+    for blk in sorted({r["block"] for r in rows}):
+        rs = [r for r in rows if r["block"] == blk]
+        print(f"  block{blk} M={rs[0]['m']:6d} n={len(rs):2d} max_rel_err="
+              f"{max(r['max_rel_err'] for r in rs):.2e} " + " ".join(
+                  f"{key}={sum(r[key] for r in rs):.4f}"
+                  for key in ("ms", "plain_ms", "mm_ms", "bound_ms")))
+    print(f"  {len(rows)} calls: " + " ".join(
+        f"{key}={sum(r[key] for r in rows):.4f}"
+        for key in ("ms", "plain_ms", "mm_ms", "bound_ms")))
+    return rows
+
+
+def synthetic_split(rng, lead: tuple, spec: dict, device):
+    """MRI-like volumes (squared normals x 500), clinical rows, events and
+    integer durations in 1..24 (many ties), with leading shape ``lead``."""
+    image = tuple(spec["image_model"]["spatial_size"]) \
+        + (spec["image_model"]["in_channels"],)
+    inputs = {
+        "image": torch.from_numpy((rng.normal(size=lead + image) ** 2 * 500
+                                   ).astype(np.float32)).to(device),
+        "clinical": torch.from_numpy(rng.normal(
+            size=lead + (spec["num_tabular_inputs"],)).astype(np.float32)
+        ).to(device)}
+    events = torch.from_numpy(
+        (rng.random(lead + (2,)) < 0.7).astype(np.float32)).to(device)
+    durations = torch.from_numpy(
+        rng.integers(1, 25, lead + (2,)).astype(np.float32)).to(device)
+    return inputs, events, durations
+
+
+def reassociated_reference(x, a, b, w):
+    """The plain version with its product summed as two halves of K: the
+    same function, its sums in another order (a control for how far
+    roundoff alone moves a superstep)."""
+    from mmnn_sts_torch.ops.fused_dense import fused_bn_relu_matmul_reference
+
+    k = x.shape[1] // 2
+    return (fused_bn_relu_matmul_reference(x[:, :k], a[:k], b[:k], w[:k])
+            + fused_bn_relu_matmul_reference(x[:, k:], a[k:], b[k:], w[k:]))
+
+
+def train_phase(fd, seed: int):
+    """The flagship survival superstep on the card (see the module
+    docstring, phase 6). Returns the kernel's launches in one superstep."""
+    from mmnn_sts_torch.config import Config
+    from mmnn_sts_torch.convert import load_jax_npz, to_jax_flat
+    from mmnn_sts_torch.infer.export import model_spec
+    from mmnn_sts_torch.models import build_model
+    from mmnn_sts_torch.models.common import Dropout
+    from mmnn_sts_torch.ops.blending import blend_update, surv_head_losses
+    from mmnn_sts_torch.ops.metrics import c_indices_per_class
+    from mmnn_sts_torch.train.schedule import make_optimizer
+    from mmnn_sts_torch.train.state import create_train_state
+    from mmnn_sts_torch.train.steps import (
+        survival_eval_step, survival_train_superstep)
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = Config()  # densenet121, 64^3 x 2ch, dropout 0.2, 11 preop
+    flags = dict(images=True, preop=True, postop=False, blend=True)
+    spec = model_spec(cfg, **flags)
+    weights = random_flat_weights(build_model(cfg, **flags), seed,
+                                  to_jax_flat)
+
+    def new_state(dropout: bool, total_steps: int):
+        model = build_model(cfg, **flags)
+        load_jax_npz(model, weights)
+        if not dropout:
+            for mod in model.modules():
+                if isinstance(mod, Dropout):
+                    mod.p = 0.0
+        model.cuda()
+        return create_train_state(model, *make_optimizer(
+            model.parameters(), TRAIN_LR, total_steps, 1), seed=seed)
+
+    def superstep(state, mask=None):
+        return survival_train_superstep(
+            state, inputs, events, durations, blend=True, augment=False,
+            mask=mask)
+
+    rng = np.random.default_rng(seed + 3)
+    inputs, events, durations = synthetic_split(
+        rng, (TRAIN_MICRO, TRAIN_BATCH), spec, "cuda")
+    vals = synthetic_split(rng, (VAL_SIZE,), spec, "cuda")
+    volumes = TRAIN_MICRO * TRAIN_BATCH
+
+    # the kernel against the plain op, one superstep each from one state
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"train: {TRAIN_MICRO} x {TRAIN_BATCH} volumes of "
+          f"{tuple(inputs['image'].shape[2:])} float32 per superstep; "
+          f"kernel vs plain op with cudnn.allow_tf32="
+          f"{torch.backends.cudnn.allow_tf32} matmul.allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32}, dropout 0")
+
+    def run_with(op):
+        """A superstep from the initial state with ``op`` in place of the
+        kernel's wrapper: (its output, its summed gradients)."""
+        state = new_state(False, 4)
+        with mock.patch.object(fd, "fused_bn_relu_matmul", op):
+            aux = superstep(state)
+        return aux, [p.grad for p in state.model.parameters()]
+
+    def deviations(aux, grads):
+        """(|diff| / (TRAIN_TOLERANCE x max(1, |plain|)), name) of the loss,
+        the predictions and each summed gradient against the plain op's."""
+        out = []
+        for name, g, w in [("loss", aux["loss"], want["loss"]),
+                           ("preds", aux["preds"], want["preds"])] + [
+                (f"grad {n}", g, w) for n, g, w in zip(names, grads,
+                                                       want_grads)]:
+            limit = TRAIN_TOLERANCE * max(1.0, w.abs().max().item())
+            ratio = (g - w).abs().max().item() / limit
+            out.append((ratio if torch.isfinite(g).all() else float("inf"),
+                        name))
+        return out
+
+    kernel_state = new_state(False, 4)
+    names = [n for n, _ in kernel_state.model.named_parameters()]
+    fd.fused_bn_relu_matmul.launches = 0
+    got = superstep(kernel_state)
+    torch.cuda.synchronize()
+    launched = fd.fused_bn_relu_matmul.launches
+    if launched != 58 * TRAIN_MICRO:
+        raise AssertionError(f"a superstep launched the kernel {launched} "
+                             f"times, not {58 * TRAIN_MICRO}")
+    want, want_grads = run_with(fd.fused_bn_relu_matmul_reference)
+    kernel_dev = deviations(
+        got, [p.grad for p in kernel_state.model.parameters()])
+    bad = [(r, n) for r, n in kernel_dev if not r <= 1.0]
+    if bad:
+        raise AssertionError(f"superstep, kernel vs plain op beyond "
+                             f"{TRAIN_TOLERANCE:.0e} x max(1, |plain|): {bad}")
+    # the control: the plain op with its product summed in another order
+    control_dev = deviations(*run_with(reassociated_reference))
+    print(f"train superstep: {launched} kernel launches; loss kernel "
+          f"{got['loss'].item():.6f} plain {want['loss'].item():.6f}; preds "
+          f"{tuple(got['preds'].shape)}; loss, preds and "
+          f"{len(kernel_dev) - 2} summed gradients within {TRAIN_TOLERANCE:.0e}"
+          f" x max(1, |plain|): largest {max(kernel_dev)[0]:.1%} of it "
+          f"({max(kernel_dev)[1]}); the plain op with its product summed in "
+          f"two halves of K, against the plain op: largest "
+          f"{max(control_dev)[0]:.1%} ({max(control_dev)[1]})")
+    del want, want_grads
+
+    mask = torch.ones(TRAIN_MICRO, TRAIN_BATCH, device="cuda")
+    mask[-1, TRAIN_BATCH // 2:] = 0  # a ragged tail: 60 of 64 valid
+    masked = superstep(kernel_state, mask)
+    grads = [p.grad for p in kernel_state.model.parameters()]
+    if not (torch.isfinite(masked["loss"]) and all(
+            torch.isfinite(g).all() for g in grads)):
+        raise AssertionError("the masked superstep's loss or gradients are "
+                             "not finite")
+    print(f"train masked superstep ({int(mask.sum())} of {volumes} valid): "
+          f"loss {masked['loss'].item():.6f}, all gradients finite")
+    del kernel_state, got, masked, grads
+
+    # a short run as configured: TF32 convolutions, dropout 0.2
+    torch.backends.cudnn.allow_tf32 = True
+    state = new_state(True, 2 + TRAIN_TIMED)
+    print(f"train run: cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+          f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}, "
+          f"dropout {cfg.image_model.dropout_prob}, OneCycle peak "
+          f"{TRAIN_LR} over {2 + TRAIN_TIMED} steps")
+    val_before = survival_eval_step(state, *vals, blend=True)
+    rewind = state.generator.get_state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    first = superstep(state)  # warm-up
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(TRAIN_TIMED)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(TRAIN_TIMED)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(TRAIN_TIMED):
+        if i == TRAIN_TIMED - 1:  # the last draws the first's dropout masks
+            state.generator.set_state(rewind)
+        starts[i].record()
+        last = superstep(state)
+        ends[i].record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / TRAIN_TIMED
+    ms = np.array([s.elapsed_time(e) for s, e in zip(starts, ends)])
+    rate = volumes * 1e3 / ms
+    peak = torch.cuda.max_memory_allocated()
+    print(f"train superstep timing ({TRAIN_TIMED} after a warm-up, CUDA "
+          f"events): median {np.median(ms):.1f} ms (min {ms.min():.1f}, max "
+          f"{ms.max():.1f}; host wall {wall:.1f} ms a superstep) = "
+          f"{np.median(rate):.1f} volumes/s (min {rate.min():.1f}, max "
+          f"{rate.max():.1f}); max_memory_allocated {peak / 2**30:.2f} GiB")
+    loss0, loss1 = first["loss"].item(), last["loss"].item()
+    print(f"train loss on the fixed batch, same dropout masks: first "
+          f"superstep {loss0:.6f}, last {loss1:.6f}")
+    if not loss1 < loss0:
+        raise AssertionError("the loss on the fixed batch did not fall")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        superstep(state)
+        torch.cuda.synchronize()
+    kinds = kernel_kinds(prof, float(np.median(ms)),
+                         "train superstep, wall the timed median", top=15)
+    bwd, bwd_mm, bwd_calls = 0.0, 0.0, 0
+    for e in prof.events():  # the Function's backward nodes and their mms
+        if e.name == "FusedBnReluMatmulBackward":
+            bwd_calls += 1
+            bwd += e.device_time_total / 1e3
+            stack = list(e.cpu_children)
+            while stack:
+                c = stack.pop()
+                if c.name == "aten::mm":
+                    bwd_mm += c.device_time_total / 1e3
+                else:
+                    stack.extend(c.cpu_children)
+    if bwd_calls != launched:
+        raise AssertionError(f"the trace holds {bwd_calls} backward calls of "
+                             f"the fused op, not {launched}")
+    busy = kinds["busy"]
+    fused = kinds.get("fused_bn_relu_matmul kernel", 0.0)
+    print(f"train superstep device time: fused kernel {fused:.3f} ms "
+          f"({fused / busy:.1%}); the fused op's backward {bwd:.3f} ms "
+          f"({bwd / busy:.1%}): its two products {bwd_mm:.3f} ms, its "
+          f"elementwise and column-sum pass {bwd - bwd_mm:.3f} ms "
+          f"({(bwd - bwd_mm) / busy:.1%})")
+
+    val_after = survival_eval_step(state, *vals, blend=True)
+    c_index = c_indices_per_class(val_after["preds"][0].cpu().numpy(),
+                                  vals[1].cpu().numpy(), vals[2].cpu().numpy())
+
+    def train_head_losses(aux):
+        return sum(surv_head_losses(aux["preds"][i], events[i], durations[i])
+                   for i in range(TRAIN_MICRO))
+
+    blend = blend_update(state.blend, train_head_losses(first),
+                         surv_head_losses(val_before["preds"], *vals[1:]),
+                         survival=True)
+    blend = blend_update(blend, train_head_losses(last),
+                         surv_head_losses(val_after["preds"], *vals[1:]),
+                         survival=True)
+    total = blend.weights.sum().item()
+    if not (abs(total - 1.0) <= 1e-5 and torch.isfinite(blend.weights).all()
+            and all(0.0 <= c <= 1.0 for c in c_index)):
+        raise AssertionError(f"blend weights {blend.weights.tolist()} or "
+                             f"C-indices {c_index} out of range")
+    state.blend = blend
+    print(f"train validation ({VAL_SIZE} volumes): loss "
+          f"{val_after['loss'].item():.6f}, selection loss "
+          f"{val_after['selection_loss'].item():.6f}, C-indices {c_index}; "
+          f"blend weights after two updates {blend.weights.tolist()} "
+          f"(sum {total:.6f})")
+    return launched
 
 
 def main(argv=None) -> int:
@@ -544,6 +911,8 @@ def main(argv=None) -> int:
     sweep_phase(fd, args.seed, REPO / "chiprun_out")
     with tempfile.TemporaryDirectory() as tmp:
         launches = serve_phase(fd, args.seed, Path(tmp))
+    backward = backward_phase(fd, args.seed, REPO / "chiprun_out")
+    train_launches = train_phase(fd, args.seed)
 
     main_path = [r for r in rows if r["batch"] == 8 and r["dtype"] == "float32"]
     entry = {
@@ -561,6 +930,14 @@ def main(argv=None) -> int:
         "bound_by": max(("bytes", "operations"), key=lambda by: sum(
             r["bound_ms"] for r in main_path if r["bound_by"] == by)),
         "library_ms": None,  # no single PyTorch call computes this function
+        # the flagship training superstep: 58 calls per microbatch x 8
+        "launches_per_superstep": train_launches,
+        # its backward (the JAX package's _bwd in plain PyTorch), the sum
+        # over the 58 shapes of one microbatch of 8
+        "backward_ms": sum(r["ms"] for r in backward),
+        "backward_plain_ms": sum(r["plain_ms"] for r in backward),
+        "backward_bound_ms": sum(r["bound_ms"] for r in backward),
+        "backward_max_rel_err": max(r["max_rel_err"] for r in backward),
     }
     print(json.dumps({"kernels": [entry]}))
     print(smi)

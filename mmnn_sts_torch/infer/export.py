@@ -23,7 +23,7 @@ import torch
 from ..config import Config, ImageModelConfig
 from ..models import build_model
 from ..models.registry import count_tabular_inputs
-from ..ops.augment import eval_transform
+from ..ops.augment import eval_transform_batch
 
 BATCH_SIZES = (1, 2, 4, 8, 16, 32)
 
@@ -142,8 +142,7 @@ class ServingModel:
             t[:n] = torch.from_numpy(a).to(self.device)
             tensors[k] = t
         if "image" in tensors:
-            tensors["image"] = torch.stack(
-                [eval_transform(v) for v in tensors["image"]])
+            tensors["image"] = eval_transform_batch(tensors["image"])
         if set(tensors) == {"image", "clinical"}:
             out = self.model(tensors)
         else:

@@ -1,19 +1,21 @@
 """3D DenseNet with the custom feature head (counterpart of
-the JAX package's models/densenet.py), eval mode.
+the JAX package's models/densenet.py).
 
 * ``DenseLayer``: fused BN -> ReLU -> 1x1x1 conv (the bottleneck, through
-  ``ops.fused_dense``) -> BN -> ReLU -> 3x3x3 conv -> concat with the input.
+  ``ops.fused_dense``) -> BN -> ReLU -> 3x3x3 conv -> channel dropout ->
+  concat with the input.
 * ``Transition``: BN -> ReLU -> 1x1x1 conv (in // 2) -> avg pool 2.
 * ``DenseNet``: conv0 (7, stride 2, pad 3) -> BN -> ReLU -> max pool
   (3, 2, 1) -> blocks and transitions -> norm5, then the ``features`` head
-  (ReLU -> global average pool -> Linear(feature_channels)) and the
-  ``class_layers`` head (Linear(out_channels)). Dropout is the identity in
-  eval mode and is left out.
+  (ReLU -> global average pool -> Linear(feature_channels) -> dropout) and
+  the ``class_layers`` head (Linear(out_channels)).
 
-The stem is a plain strided convolution with the logical (7, 7, 7) kernel;
-the JAX package's space-to-depth form of it is a TPU layout choice with the
-same numbers. Submodule names follow the JAX package's parameter paths, so
-``convert.py`` maps checkpoints name for name.
+Train mode is ``module.training``; ``sample_mask`` reaches every BatchNorm
+and the dropouts draw from ``generator``. The stem is a plain strided
+convolution with the logical (7, 7, 7) kernel; the JAX package's
+space-to-depth form of it is a TPU layout choice with the same numbers.
+Submodule names follow the JAX package's parameter paths, so ``convert.py``
+maps checkpoints name for name.
 """
 
 from __future__ import annotations
@@ -29,16 +31,23 @@ from .common import (
     CHANNELS_LAST,
     BN_EPS,
     BatchNorm,
-    require_eval,
+    Dropout,
     avg_pool,
+    compute_batch_stats,
     conv,
+    dense,
     global_avg_pool,
+    kaiming_normal_,
     max_pool,
+    update_running_stats,
 )
 
 
 class FusedBottleneck(nn.Module):
-    """Eval BN + ReLU + 1x1x1 conv in one call of the fused op.
+    """BN + ReLU + 1x1x1 conv in one call of the fused op, in train mode on
+    the batch statistics of x (then the running-stat update), in eval mode
+    on the running ones (densenet.py:151-203). Masked rows are not zeroed
+    here, as in the JAX module.
 
     State mirrors the JAX ``fused1`` layout: ``scale``, ``bias`` and
     ``kernel`` (Cin, Cout), plus the running ``mean`` and ``var``.
@@ -49,30 +58,38 @@ class FusedBottleneck(nn.Module):
         super().__init__()
         self.scale = nn.Parameter(torch.ones(in_channels))
         self.bias = nn.Parameter(torch.zeros(in_channels))
-        self.kernel = nn.Parameter(torch.empty(in_channels, out_channels))
-        nn.init.kaiming_normal_(self.kernel.T, nonlinearity="relu")
+        self.kernel = nn.Parameter(kaiming_normal_(
+            torch.empty(in_channels, out_channels), in_channels))
         self.register_buffer("mean", torch.zeros(in_channels))
         self.register_buffer("var", torch.ones(in_channels))
 
-    def forward(self, x):
+    def forward(self, x, sample_mask=None):
         """x: (N, C, D, H, W), channels-last in memory."""
-        require_eval(self)
+        if self.training:
+            mean, var, unbiased, any_valid = compute_batch_stats(x, sample_mask)
+            update_running_stats(self.mean, self.var, mean, unbiased,
+                                 any_valid)
+        else:
+            mean, var = self.mean, self.var
         y = bn_relu_conv1x1(
-            x.permute(0, 2, 3, 4, 1), self.scale, self.bias, self.mean,
-            self.var, self.kernel.to(x.dtype), eps=BN_EPS,
+            x.permute(0, 2, 3, 4, 1), self.scale, self.bias, mean, var,
+            self.kernel.to(x.dtype), eps=BN_EPS,
         )
         return y.permute(0, 4, 1, 2, 3)
 
 
 class DenseLayer(nn.Module):
-    def __init__(self, in_channels: int, growth_rate: int, bn_size: int):
+    def __init__(self, in_channels: int, growth_rate: int, bn_size: int,
+                 dropout_prob: float = 0.0):
         super().__init__()
         self.fused1 = FusedBottleneck(in_channels, bn_size * growth_rate)
         self.norm2 = BatchNorm(bn_size * growth_rate)
         self.conv2 = conv(bn_size * growth_rate, growth_rate, 3, padding=1)
+        self.dropout = Dropout(dropout_prob, channels=True)
 
-    def forward(self, x):
-        y = self.conv2(F.relu(self.norm2(self.fused1(x))))
+    def forward(self, x, sample_mask=None, generator=None):
+        y = F.relu(self.norm2(self.fused1(x, sample_mask), sample_mask))
+        y = self.dropout(self.conv2(y), generator)
         return torch.cat([x, y.contiguous(memory_format=CHANNELS_LAST)], dim=1)
 
 
@@ -82,8 +99,8 @@ class Transition(nn.Module):
         self.norm = BatchNorm(in_channels)
         self.conv = conv(in_channels, out_channels, 1)
 
-    def forward(self, x):
-        return avg_pool(self.conv(F.relu(self.norm(x))), 2, 2)
+    def forward(self, x, sample_mask=None):
+        return avg_pool(self.conv(F.relu(self.norm(x, sample_mask))), 2, 2)
 
 
 class DenseNet(nn.Module):
@@ -102,6 +119,7 @@ class DenseNet(nn.Module):
         growth_rate: int = 32,
         block_config: Sequence[int] = (6, 12, 24, 16),
         bn_size: int = 4,
+        dropout_prob: float = 0.0,
     ):
         super().__init__()
         self.block_config = tuple(block_config)
@@ -110,43 +128,49 @@ class DenseNet(nn.Module):
         ch = init_features
         for i, num_layers in enumerate(self.block_config):
             for j in range(num_layers):
-                self.add_module(f"block{i + 1}_layer{j + 1}",
-                                DenseLayer(ch, growth_rate, bn_size))
+                self.add_module(
+                    f"block{i + 1}_layer{j + 1}",
+                    DenseLayer(ch, growth_rate, bn_size, dropout_prob))
                 ch += growth_rate
             if i == len(self.block_config) - 1:
                 self.norm5 = BatchNorm(ch)
             else:
                 self.add_module(f"transition{i + 1}", Transition(ch, ch // 2))
                 ch //= 2
-        self.feature_layer = nn.Linear(ch, feature_channels)
+        self.feature_layer = dense(ch, feature_channels)
+        self.feature_dropout = Dropout(dropout_prob)
         if out_channels is not None:
-            self.out = nn.Linear(feature_channels, out_channels)
+            self.out = dense(feature_channels, out_channels)
 
-    def backbone(self, x):
+    def backbone(self, x, sample_mask=None, generator=None):
         """x: (N, C, D, H, W) channels-last -> final BN'd feature map."""
-        x = max_pool(F.relu(self.norm0(self.conv0(x))), 3, 2, 1)
+        x = max_pool(F.relu(self.norm0(self.conv0(x), sample_mask)), 3, 2, 1)
         for i, num_layers in enumerate(self.block_config):
             # pooling may hand back another memory format; the dense block's
             # bottlenecks need channels-last, so restore it once per block
             x = x.contiguous(memory_format=CHANNELS_LAST)
             for j in range(num_layers):
-                x = getattr(self, f"block{i + 1}_layer{j + 1}")(x)
+                x = getattr(self, f"block{i + 1}_layer{j + 1}")(
+                    x, sample_mask, generator)
             if i == len(self.block_config) - 1:
-                x = self.norm5(x)
+                x = self.norm5(x, sample_mask)
             else:
-                x = getattr(self, f"transition{i + 1}")(x)
+                x = getattr(self, f"transition{i + 1}")(x, sample_mask)
         return x
 
-    def features(self, x):
-        return self.feature_layer(global_avg_pool(F.relu(x)))
+    def features(self, x, generator=None):
+        return self.feature_dropout(
+            self.feature_layer(global_avg_pool(F.relu(x))), generator)
 
     def class_layers(self, x):
         return self.out(x)
 
-    def forward(self, x, return_features: bool = False):
+    def forward(self, x, return_features: bool = False, sample_mask=None,
+                generator=None):
         """x: (N, D, H, W, C), the JAX package's layout."""
-        require_eval(self)
-        feats = self.features(self.backbone(x.permute(0, 4, 1, 2, 3)))
+        feats = self.features(
+            self.backbone(x.permute(0, 4, 1, 2, 3), sample_mask, generator),
+            generator)
         return feats if return_features else self.class_layers(feats)
 
 

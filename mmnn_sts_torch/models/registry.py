@@ -2,9 +2,11 @@
 the JAX package's models/registry.py).
 
 Ported so far: ``densenet121`` and ``tinydensenet`` image models, their
-multimodal wrapping with the clinical MLP, and the clinical-only MLP. Other
-model names, and ``compute_dtype: bfloat16``, raise ``ConfigurationError``;
-ROADMAP.md lists them as work to come.
+multimodal wrapping with the clinical MLP, and the clinical-only MLP, with
+``ImageModel.dropout_prob`` as the JAX registry passes it (registry.py:41;
+the multimodal model's clinical MLP keeps its own 0.2). Other model names,
+and ``compute_dtype: bfloat16``, raise ``ConfigurationError``; ROADMAP.md
+lists them as work to come.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ def build_image_model(cfg: Config, class_head: bool = True) -> nn.Module:
                 in_channels=im.in_channels,
                 out_channels=im.num_classes if class_head else None,
                 feature_channels=im.feature_layers,
+                dropout_prob=im.dropout_prob,
             )
     raise ConfigurationError(
         f"Model name {name!r} is not ported to mmnn_sts_torch yet "
@@ -81,6 +84,7 @@ def build_model(
             in_channels=num_tabular_inputs,
             out_channels=cfg.image_model.num_classes,
             feature_channels=cfg.image_model.feature_layers,
+            dropout_prob=cfg.image_model.dropout_prob,
         )
     if preop or postop:
         return MultiModalModel(

@@ -2,7 +2,7 @@
 
 Counterpart of the JAX package's ops/pallas/fused_dense.py. A 1x1x1 convolution
 over channels-last activations is a matmul over (voxels x channels), and the
-eval BatchNorm + ReLU before it is an elementwise prologue on the same tile:
+BatchNorm + ReLU before it is an elementwise prologue on the same tile:
 
     out = relu(x * a + b) @ W,  a = scale / sqrt(var + eps),
                                 b = bias - mean * a
@@ -11,8 +11,14 @@ On a CUDA tensor ``fused_bn_relu_matmul`` launches the hand-written kernel
 (``kernels/csrc/fused_bn_relu_matmul.cu``) with the tile and K-split that
 ``launch_plan`` picks for the shape; on a CPU tensor it computes the plain
 PyTorch version, ``fused_bn_relu_matmul_reference``. Nothing falls back: a
-build or launch failure raises. Forward only; the backward comes with the
-training path.
+build or launch failure raises.
+
+``FusedBnReluMatmul`` is the op under autograd (the Pallas entry's custom
+VJP): its forward is ``fused_bn_relu_matmul``, its backward the JAX
+package's ``_bwd`` (fused_dense.py:93-106) in plain PyTorch, two products
+and one elementwise and column-sum pass. ``bn_relu_conv1x1`` folds the
+statistics into ``a`` and ``b`` under autograd, so in train mode the
+gradient reaches x through the batch mean and variance as well.
 """
 
 from __future__ import annotations
@@ -86,8 +92,12 @@ def launch_plan(m: int, k: int, n: int, sms: int) -> tuple[int, int, int]:
 def fused_bn_relu_matmul_reference(x, a, b, w):
     """Plain version: ``relu(x.float() * a + b)`` rounded to w's dtype, then
     a float32-accumulated product, rounded to x's dtype
-    (fused_dense.py:45-50)."""
-    h = torch.relu(x.float() * a + b).to(w.dtype)
+    (fused_dense.py:45-50). The ReLU is ``z * (z > 0)``: a NaN stays NaN,
+    as in ``jnp.maximum(z, 0)``, and under autograd a NaN or zero z passes
+    no gradient, as in the custom VJP's mask (torch.relu's gradient passes
+    a NaN's)."""
+    z = x.float() * a + b
+    h = (z * (z > 0)).to(w.dtype)
     return torch.matmul(h.float(), w.float()).to(x.dtype)
 
 
@@ -188,8 +198,42 @@ def fused_bn_relu_matmul(x, a, b, w):
 fused_bn_relu_matmul.launches = 0
 
 
+def fused_bn_relu_matmul_backward(x, a, b, w, g):
+    """``(dx, da, db, dw)`` of ``relu(x * a + b) @ w`` for the output
+    gradient ``g``, as the JAX package's ``_bwd`` computes them: the mask is
+    ``z > 0``, so a NaN ``z`` gives a zero ``gz`` (and a NaN ``h``, so a NaN
+    ``dw``), not torch's relu gradient."""
+    x32, g32 = x.float(), g.float()
+    z = x32 * a + b
+    mask = (z > 0).float()
+    h = z * mask
+    gz = torch.matmul(g32, w.float().T) * mask  # (M, Cin)
+    dx = (gz * a).to(x.dtype)
+    da = (gz * x32).sum(0).to(a.dtype)
+    db = gz.sum(0).to(b.dtype)
+    dw = torch.matmul(h.T, g32).to(w.dtype)
+    return dx, da, db, dw
+
+
+class FusedBnReluMatmul(torch.autograd.Function):
+    """``fused_bn_relu_matmul`` under autograd. The forward saves
+    ``(x, a, b, w)``, as the custom VJP's ``_fwd`` does (fused_dense.py:88-90);
+    the backward is ``fused_bn_relu_matmul_backward``."""
+
+    @staticmethod
+    def forward(ctx, x, a, b, w):
+        ctx.save_for_backward(x, a, b, w)
+        return fused_bn_relu_matmul(x, a, b, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        return fused_bn_relu_matmul_backward(*ctx.saved_tensors, g)
+
+
 def bn_relu_conv1x1(x, scale, bias, mean, var, w, eps: float = 1e-5):
-    """Channels-last entry point: x (..., Cin) -> (..., Cout).
+    """Channels-last entry point: x (..., Cin) -> (..., Cout), with mean and
+    var whichever statistics apply (the batch's in train mode, the running
+    ones in eval mode).
 
     ``a``/``b`` are folded in float32 outside the kernel
     (fused_dense.py:127-128). ``x`` must be viewable as (M, Cin) without a
@@ -199,5 +243,5 @@ def bn_relu_conv1x1(x, scale, bias, mean, var, w, eps: float = 1e-5):
     a = (scale * torch.rsqrt(var.float() + eps)).float()
     b = (bias - mean * a).float()
     lead = x.shape[:-1]
-    out = fused_bn_relu_matmul(x.view(-1, x.shape[-1]), a, b, w)
+    out = FusedBnReluMatmul.apply(x.view(-1, x.shape[-1]), a, b, w)
     return out.view(*lead, w.shape[1])

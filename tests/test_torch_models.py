@@ -189,6 +189,17 @@ def test_registry_rejects_what_is_not_ported():
 
 
 def test_train_mode_is_refused():
+    """Train mode runs; what training still refuses is the random
+    augmentation, which is not ported yet."""
+    from mmnn_sts_torch.train.schedule import make_optimizer
+    from mmnn_sts_torch.train.state import create_train_state
+    from mmnn_sts_torch.train.steps import survival_train_superstep
+
     model = MLP(in_channels=11, out_channels=2)
-    with pytest.raises(NotImplementedError, match="eval"):
-        model(torch.zeros(2, 11))
+    state = create_train_state(model, *make_optimizer(model.parameters(),
+                                                      1e-2, 1, 1))
+    with pytest.raises(NotImplementedError, match="augmentation.*ROADMAP"):
+        survival_train_superstep(state, torch.zeros(1, 4, 11),
+                                 torch.ones(1, 4, 2), torch.ones(1, 4, 2),
+                                 augment=True)
+    assert state.step == 0
