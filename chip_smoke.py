@@ -65,8 +65,30 @@ Phases; any failure is an uncaught exception and a nonzero exit:
    and the backward's shares), two validation steps with their C-indices
    and two blend updates. The first and the last superstep draw the same
    dropout masks (the generator is rewound), and the last one's loss on
-   the fixed batch must be below the first's.
-7. Prints the kernels' JSON line, the card's line, and last
+   the fixed batch must be below the first's. Then the same superstep with
+   the training augmentation on (augment=True, as the run trains): a
+   warm-up and 6 timed supersteps (volumes/s, peak memory) and one
+   profiled superstep: the augmentation's device ms and launches (its
+   calls run inside a profiler range) and the busy share.
+7. CLI: the survival run as a user starts it, at full width. A synthetic
+   cohort written without pandas (the csv module and the port's
+   save_nifti): CLI_PATIENTS patients, T1 and T2 NIfTI volumes of
+   CLI_VOLUME voxels (squared normals x 500, a mask inside), a clinical CSV
+   with the real column names and types (dates, categoricals, % necrosis),
+   a patient key, and a JSON config (densenet121, t1t2, 64^3 x 2ch). Then
+   mmnn_sts_torch.cli.main in this process: --images --preop --survival
+   --blend --split --epochs 3 --blend_update_interval 1 --checkpoint_dir.
+   Checked: rc 0, the uid files, 3 survival_epoch rows with finite losses
+   and C-indices in [0, 1], blend weights that moved and sum to 1, a
+   best_surv_model.npz that loads strictly into a fresh port model, and
+   kernel launches = supersteps x 464 + validation forwards x 58. Then
+   --resume for a 4th epoch (the step counter must carry on, and the blend
+   history keeps the first run's rows), then
+   python3 -m mmnn_sts_torch --export_path as a subprocess with the best
+   weights, and ServingModel on the card answers a batch-3 request with a
+   finite (3, 2). Prints the cohort build's seconds, each epoch's seconds
+   and samples/s, the best save's host stall and the artifacts written.
+8. Prints the kernels' JSON line, the card's line, and last
    {"ok": true, "device": {...}}.
 
 Per-shape kernel results go to chiprun_out/chip_smoke_kernels.jsonl, the
@@ -79,6 +101,7 @@ import argparse
 import functools
 import io
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -118,6 +141,14 @@ TRAIN_LR = 1e-2  # OneCycle peak over the short run
 # summed in another order, moves conv0's weight gradient by 4e-3 of it)
 TRAIN_TOLERANCE = 1e-2
 VAL_SIZE = 16  # volumes of the synthetic validation split
+# augmentation on the card vs the CPU, x max(1, |cpu|): float32 einsums
+# (TF32 off) and elementwise passes in another order; the sharpening
+# multiplies a difference of two blurs by up to 30
+AUGMENT_TOLERANCE = 1e-4
+# the CLI phase's synthetic cohort: about 67 train patients (2 supersteps
+# an epoch, the second ragged), each volume MRI-like in size
+CLI_PATIENTS, CLI_VOLUME, CLI_EPOCHS = 96, (80, 72, 48), 3
+CLI_MODEL, CLI_SIDE, CLI_DEVICE = "densenet121", 64, "cuda"
 
 
 def bound_ms(m: int, k: int, n: int, dtype: str) -> tuple[float, str]:
@@ -675,6 +706,8 @@ def train_phase(fd, seed: int):
     from mmnn_sts_torch.ops.blending import blend_update, surv_head_losses
     from mmnn_sts_torch.ops.metrics import c_indices_per_class
     from mmnn_sts_torch.train.schedule import make_optimizer
+    from mmnn_sts_torch.ops import augment
+    from mmnn_sts_torch.train import steps
     from mmnn_sts_torch.train.state import create_train_state
     from mmnn_sts_torch.train.steps import (
         survival_eval_step, survival_train_superstep)
@@ -787,29 +820,18 @@ def train_phase(fd, seed: int):
           f"{TRAIN_LR} over {2 + TRAIN_TIMED} steps")
     val_before = survival_eval_step(state, *vals, blend=True)
     rewind = state.generator.get_state()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    first = superstep(state)  # warm-up
-    starts = [torch.cuda.Event(enable_timing=True) for _ in range(TRAIN_TIMED)]
-    ends = [torch.cuda.Event(enable_timing=True) for _ in range(TRAIN_TIMED)]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(TRAIN_TIMED):
-        if i == TRAIN_TIMED - 1:  # the last draws the first's dropout masks
-            state.generator.set_state(rewind)
-        starts[i].record()
-        last = superstep(state)
-        ends[i].record()
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3 / TRAIN_TIMED
-    ms = np.array([s.elapsed_time(e) for s, e in zip(starts, ends)])
-    rate = volumes * 1e3 / ms
-    peak = torch.cuda.max_memory_allocated()
-    print(f"train superstep timing ({TRAIN_TIMED} after a warm-up, CUDA "
-          f"events): median {np.median(ms):.1f} ms (min {ms.min():.1f}, max "
-          f"{ms.max():.1f}; host wall {wall:.1f} ms a superstep) = "
-          f"{np.median(rate):.1f} volumes/s (min {rate.min():.1f}, max "
-          f"{rate.max():.1f}); max_memory_allocated {peak / 2**30:.2f} GiB")
+    out = {}
+
+    def step_and_keep():
+        out["last"] = superstep(state)
+        out.setdefault("first", out["last"])
+        return out["last"]
+
+    # the last timed superstep draws the warm-up's dropout masks
+    ms = timed_supersteps(step_and_keep, volumes, "train superstep",
+                          before_last=lambda: state.generator.set_state(
+                              rewind))
+    first, last = out["first"], out["last"]
     loss0, loss1 = first["loss"].item(), last["loss"].item()
     print(f"train loss on the fixed batch, same dropout masks: first "
           f"superstep {loss0:.6f}, last {loss1:.6f}")
@@ -870,7 +892,377 @@ def train_phase(fd, seed: int):
           f"{val_after['selection_loss'].item():.6f}, C-indices {c_index}; "
           f"blend weights after two updates {blend.weights.tolist()} "
           f"(sum {total:.6f})")
+
+    # the superstep as the run trains it: the random augmentation on
+    def augmented():
+        aux = survival_train_superstep(state, inputs, events, durations,
+                                       blend=True, augment=True)
+        if not torch.isfinite(aux["loss"]):
+            raise AssertionError("an augmented superstep's loss is not finite")
+        return aux
+
+    # the deterministic transform on the card against the same on the CPU,
+    # from one microbatch's draws
+    params = augment.draw_augment_params(
+        TRAIN_BATCH, state.generator, "cuda", tuple(inputs["image"].shape[2:]))
+    on_card = augment.apply_train_augment(inputs["image"][0], params)
+    on_cpu = augment.apply_train_augment(
+        inputs["image"][0].cpu(), {k: v.cpu() for k, v in params.items()})
+    diff = (on_card.cpu() - on_cpu).abs().max().item()
+    print(f"train augmentation, microbatch of {TRAIN_BATCH}: card vs CPU "
+          f"max|diff| {diff:.3e} (limit {AUGMENT_TOLERANCE:.0e} x max(1, "
+          f"|cpu|) = {AUGMENT_TOLERANCE * max(1.0, on_cpu.abs().max().item()):.1e})")
+    if not diff <= AUGMENT_TOLERANCE * max(1.0, on_cpu.abs().max().item()):
+        raise AssertionError("the augmentation on the card disagrees with "
+                             "the CPU")
+    aug_ms = timed_supersteps(augmented, volumes,
+                              "train superstep with augmentation")
+    ranged = profiler_range(steps.train_augment_batch, "train_augment")
+    with mock.patch.object(steps, "train_augment_batch", ranged), \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
+        augmented()
+        torch.cuda.synchronize()
+    kinds = kernel_kinds(prof, float(np.median(aug_ms)),
+                         "augmented train superstep, wall the timed median",
+                         top=8)
+    aug_dev, aug_launches, aug_calls = range_totals(prof, "train_augment")
+    if aug_calls != TRAIN_MICRO:
+        raise AssertionError(f"the trace holds {aug_calls} augmentation "
+                             f"calls, not {TRAIN_MICRO}")
+    print(f"train augmentation in one superstep: {aug_calls} calls (one a "
+          f"microbatch of {TRAIN_BATCH}), {aug_launches} kernel launches, "
+          f"{aug_dev:.3f} ms device time ({aug_dev / kinds['busy']:.1%} of "
+          f"the superstep's kernels)")
     return launched
+
+
+def timed_supersteps(step, volumes: int, what: str, before_last=None):
+    """A warm-up call of ``step`` and TRAIN_TIMED timed ones (CUDA events
+    around each); prints volumes/s (median, min, max), the host wall and
+    the peak memory, and returns the timed ms. ``before_last`` runs just
+    before the last timed call."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step()  # warm-up
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(TRAIN_TIMED)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(TRAIN_TIMED)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(TRAIN_TIMED):
+        if i == TRAIN_TIMED - 1 and before_last is not None:
+            before_last()
+        starts[i].record()
+        step()
+        ends[i].record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / TRAIN_TIMED
+    ms = np.array([s.elapsed_time(e) for s, e in zip(starts, ends)])
+    rate = volumes * 1e3 / ms
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{what} timing ({TRAIN_TIMED} after a warm-up, CUDA "
+          f"events): median {np.median(ms):.1f} ms (min {ms.min():.1f}, max "
+          f"{ms.max():.1f}; host wall {wall:.1f} ms a superstep) = "
+          f"{np.median(rate):.1f} volumes/s (min {rate.min():.1f}, max "
+          f"{rate.max():.1f}); max_memory_allocated {peak / 2**30:.2f} GiB")
+    return ms
+
+
+def profiler_range(fn, name: str):
+    """``fn`` with each call inside a torch.profiler range ``name``."""
+    @functools.wraps(fn)
+    def call(*args, **kw):
+        with torch.profiler.record_function(name):
+            return fn(*args, **kw)
+
+    return call
+
+
+def range_totals(prof, name: str) -> tuple[float, int, int]:
+    """(device ms, kernel launches, calls) of the profiler ranges ``name``
+    in a trace, their child ops' kernels included."""
+    ms, launches, calls = 0.0, 0, 0
+    for e in prof.events():
+        if e.name != name or e.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        calls += 1
+        ms += e.device_time_total / 1e3
+        stack = [e]
+        while stack:
+            c = stack.pop()
+            launches += len(c.kernels)
+            stack.extend(c.cpu_children)
+    return ms, launches, calls
+
+
+# the clinical CSV's columns, as the cohort's export names them
+CLINICAL_COLUMNS = (
+    "MRN", "Sex", "Age", "Location3", "Diagnosis", "Chemo (Neoadjuvant)",
+    "TumorSize", "TumorVolume (cm^3)",
+    "TumorDepth (1 = deep to fascia, 0 = superficial) ", "TumorGrade",
+    "Metsatpresentation", "RT Type (0 = preop, 1 = postop",
+    "Margin (negative==0, microscopically positive==1, grossly positive==2)",
+    "Necrosis % (information not known prior to operation)", "LengthOR",
+    "VitalStatus", "Distant metastasis", "FUtime", "Date of Distant Mets",
+    "Surgery_Date")
+
+
+def write_cohort(root: Path, n: int, seed: int) -> dict:
+    """A synthetic cohort on disk without pandas: clinical.csv (survival
+    times drawn from a hazard of grade, volume and age; ISO dates, string
+    categoricals, '%' necrosis with gaps), key.csv ('Anon MRN' -> MRN) and
+    t1/ t2/ trees of one folder per patient with scan_*.nii.gz and
+    mask_*.nii.gz (CLI_VOLUME voxels, squared normals x 500, the mask a box
+    inside)."""
+    import csv
+    import datetime
+
+    from mmnn_sts_torch.data.nifti import save_nifti
+
+    rng = np.random.default_rng(seed)
+    root.mkdir(parents=True, exist_ok=True)
+    uids = 1000 + np.arange(n)
+    grade = rng.integers(1, 4, n)
+    volume = rng.uniform(10, 2000, n).round(1)
+    age = rng.integers(20, 90, n)
+    risk = (0.8 * (grade - 2) + 1.2 * (np.log(volume) - np.log(300))
+            + 0.02 * (age - 55))
+    t_event = rng.exponential(scale=900 * np.exp(-risk))
+    futime = np.minimum(t_event, rng.uniform(500, 3000, n)).astype(int) + 1
+    vital = (t_event <= futime).astype(int)
+    dm = rng.random(n) < 1 / (1 + np.exp(-risk))
+    met_days = np.maximum((t_event * rng.uniform(0.3, 0.9, n)).astype(int), 10)
+    surgery = datetime.date(2015, 1, 1)
+    columns = [
+        uids, rng.choice(["M", "F"], n), age,
+        rng.choice(["Thigh", "Pelvis", "Arm"], n),
+        rng.choice(["MFH", "Liposarcoma", "Synovial"], n),
+        rng.choice(["Yes", "No"], n), rng.uniform(1, 25, n).round(1), volume,
+        rng.integers(0, 2, n), grade, rng.integers(0, 2, n),
+        rng.integers(0, 2, n), rng.integers(0, 3, n),
+        [f"{v}%" if keep else "" for v, keep in
+         zip(rng.integers(0, 100, n), rng.random(n) < 0.8)],
+        rng.integers(60, 400, n), vital, dm.astype(int), futime,
+        [(surgery + datetime.timedelta(days=int(d))).isoformat() if e else ""
+         for d, e in zip(met_days, dm)],
+        [surgery.isoformat()] * n]
+    paths = {"clinical": root / "clinical.csv", "key": root / "key.csv",
+             "root": root}
+    with open(paths["clinical"], "w", newline="") as f:
+        out = csv.writer(f)
+        out.writerow(CLINICAL_COLUMNS)
+        out.writerows(zip(*columns))
+    anon = [f"STS-{i:03d}" for i in range(n)]
+    with open(paths["key"], "w", newline="") as f:
+        out = csv.writer(f)
+        out.writerow(["Anon MRN", "MRN"])
+        out.writerows(zip(anon, uids))
+    mask = np.zeros(CLI_VOLUME, np.float32)
+    mask[8:-8, 8:-8, 6:-6] = 1.0
+    for modality in ("t1", "t2"):
+        for a in anon:
+            pdir = root / modality / a
+            pdir.mkdir(parents=True)
+            image = (rng.normal(size=CLI_VOLUME) ** 2 * 500).astype(np.float32)
+            save_nifti(str(pdir / f"scan_{a}.nii.gz"), image)
+            save_nifti(str(pdir / f"mask_{a}.nii.gz"), mask)
+    return paths
+
+
+def counted(fn, counts: dict, name: str):
+    """``fn``, adding one to ``counts[name]`` and the host seconds of each
+    call to ``counts[name + '_s']``."""
+    @functools.wraps(fn)
+    def call(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            counts[name] = counts.get(name, 0) + 1
+            counts.setdefault(name + "_s", []).append(
+                time.perf_counter() - t0)
+
+    return call
+
+
+def cli_phase(fd, seed: int, workdir: Path) -> dict:
+    """The survival run through the port's CLI at full width (see the
+    module docstring, phase 7). Returns its kernel launches and counts."""
+    from mmnn_sts_torch import cli, pipeline
+    from mmnn_sts_torch.config import parse_config
+    from mmnn_sts_torch.infer.export import ServingModel
+    from mmnn_sts_torch.models import build_model
+    from mmnn_sts_torch.train import checkpoint, evaluate, loop
+    from mmnn_sts_torch.train.checkpoint import CheckpointManager
+
+    t0 = time.perf_counter()
+    paths = write_cohort(workdir / "cohort", CLI_PATIENTS, seed + 4)
+    print(f"cli cohort written (csv + save_nifti, {CLI_PATIENTS} patients, "
+          f"T1/T2 {CLI_VOLUME}): {time.perf_counter() - t0:.1f} s")
+    config = {"Data": {"data_loc": str(paths["clinical"]),
+                       "image_loc": str(paths["root"]),
+                       "key_loc": str(paths["key"])},
+              "ImageModel": {"name": CLI_MODEL, "modality": "t1t2",
+                             "in_channels": 2,
+                             "spatial_size": [CLI_SIDE] * 3},
+              "Hyperparameters": {"train_batch_size": TRAIN_BATCH,
+                                  "seed": seed}}
+    config_path = workdir / "config.json"
+    config_path.write_text(json.dumps(config))
+    run_dir, out, ck = workdir / "run", workdir / "run" / "out", \
+        workdir / "run" / "ck"
+    run_dir.mkdir()
+    args = ["--images", "--preop", "--survival", "--blend", "--split",
+            "--config", str(config_path), "--blend_update_interval", "1",
+            "--output_path", str(out), "--checkpoint_dir", str(ck),
+            "--device", CLI_DEVICE]
+
+    counts = {}
+    patches = [
+        mock.patch.object(pipeline, "load_cohort",
+                          counted(pipeline.load_cohort, counts, "cohort")),
+        mock.patch.object(loop, "survival_train_superstep",
+                          counted(loop.survival_train_superstep, counts,
+                                  "supersteps")),
+        mock.patch.object(evaluate, "survival_eval_step",
+                          counted(evaluate.survival_eval_step, counts,
+                                  "val_forwards")),
+        mock.patch.object(checkpoint.AsyncNpzSaver, "submit",
+                          counted(checkpoint.AsyncNpzSaver.submit, counts,
+                                  "best_saves")),
+        mock.patch.object(checkpoint.CheckpointManager, "save",
+                          counted(checkpoint.CheckpointManager.save, counts,
+                                  "checkpoints")),
+    ]
+
+    def run(extra):
+        cwd = Path.cwd()
+        os.chdir(run_dir)  # --split writes the uid files here
+        try:
+            for p in patches:
+                p.start()
+            return cli.main(args + extra)
+        finally:
+            for p in patches:
+                p.stop()
+            os.chdir(cwd)
+
+    fd.fused_bn_relu_matmul.launches = 0
+    t0 = time.perf_counter()
+    rc = run(["--epochs", str(CLI_EPOCHS)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fd.fused_bn_relu_matmul.launches
+    if rc != 0:
+        raise AssertionError(f"the CLI returned {rc}")
+    uid_lists = {name: (run_dir / f"{name}_uids.txt").read_text().split()
+                 for name in ("train", "val", "test")}
+    if sum(len(v) for v in uid_lists.values()) != CLI_PATIENTS:
+        raise AssertionError(f"uid files {uid_lists}")
+    rows = [json.loads(x) for x in (out / "metrics.jsonl").read_text()
+            .splitlines()]
+    if [r["epoch"] for r in rows] != list(range(1, CLI_EPOCHS + 1)) or not all(
+            np.isfinite([r["train_loss"], r["val_loss"]]).all()
+            and 0.0 <= r["train_c"] <= 1.0 and 0.0 <= r["val_c"] <= 1.0
+            for r in rows):
+        raise AssertionError(f"metrics rows {rows}")
+    blend = np.loadtxt(out / "gblend_weights_history.csv", delimiter=",")
+    if not (blend.shape == (CLI_EPOCHS + 1, 3)
+            and np.allclose(blend.sum(1), 1.0, atol=1e-5)
+            and not np.allclose(blend[-1], blend[0])):
+        raise AssertionError(f"blend history {blend.tolist()}")
+    fresh = build_model(parse_config(str(config_path)), True, True, False,
+                        True)
+    checkpoint.load_params_npz(str(out / "best_surv_model.npz"), fresh)
+    per_forward = sum(fresh.image_model.block_config)  # 58 in DenseNet121
+    expected = (counts["supersteps"] * TRAIN_MICRO
+                + counts["val_forwards"]) * per_forward
+    if launches != expected:
+        raise AssertionError(
+            f"the CLI run launched the kernel {launches} times, not "
+            f"{counts['supersteps']} supersteps x {per_forward * TRAIN_MICRO}"
+            f" + {counts['val_forwards']} validation forwards x "
+            f"{per_forward} = {expected}")
+    spe = counts["supersteps"] // CLI_EPOCHS
+    run_counts = {"launches": launches, "per_epoch": launches // CLI_EPOCHS,
+                  "supersteps": counts["supersteps"],
+                  "val_forwards": counts["val_forwards"]}
+    print(f"cli run: rc {rc}, {wall:.1f} s; train/val/test "
+          f"{len(uid_lists['train'])}/{len(uid_lists['val'])}/"
+          f"{len(uid_lists['test'])} patients; cohort build (load_cohort) "
+          f"{counts['cohort_s'][0]:.1f} s; {counts['supersteps']} supersteps "
+          f"({spe} an epoch), {counts['val_forwards']} validation forwards; "
+          f"kernel launches {launches} = {expected} expected "
+          f"({launches // CLI_EPOCHS} an epoch)")
+    for r in rows:
+        print(f"  epoch {r['epoch']}: {r['epoch_seconds']:.2f} s, "
+              f"{r['samples_per_sec']:.1f} samples/s (host clock; samples "
+              f"include the wrap pad), train loss {r['train_loss']:.4f}, "
+              f"val loss {r['val_loss']:.4f}, train C {r['train_c']:.3f}, "
+              f"val C {r['val_c']:.3f}")
+    epoch_s = sum(r["epoch_seconds"] for r in rows)
+    parts = {name: sum(counts[name + "_s"]) for name in (
+        "supersteps", "val_forwards", "checkpoints")}
+    print(f"  host seconds over the {CLI_EPOCHS} epochs, of the run's "
+          f"{wall:.1f} s: the epochs' training ({epoch_s:.2f} s, the "
+          f"epoch_seconds of metrics.jsonl) with the supersteps' calls "
+          f"{parts['supersteps']:.2f} s (the host sets the pace, so a call "
+          f"returns about when its work is done); after it, validation "
+          f"forwards {parts['val_forwards']:.2f} s and checkpoints "
+          f"{parts['checkpoints']:.2f} s")
+    print(f"  best saves {counts.get('best_saves', 0)}, host stall of each "
+          f"(snapshot + queue): " + ", ".join(
+              f"{t * 1e3:.2f} ms" for t in counts.get("best_saves_s", [])))
+    print(f"  blend weights {blend[-1].tolist()}; artifacts "
+          f"{sorted(os.listdir(out))}; checkpoints "
+          f"{sorted(os.listdir(ck))}")
+
+    step_before = torch.load(ck / f"ckpt_{CLI_EPOCHS:08d}.pt",
+                             weights_only=True)["step"]
+    rc = run(["--epochs", str(CLI_EPOCHS + 1), "--resume"])
+    manager = CheckpointManager(str(ck))
+    step_after = torch.load(ck / f"ckpt_{CLI_EPOCHS + 1:08d}.pt",
+                            weights_only=True)["step"]
+    # the resumed run rewrites the blend history whole
+    resumed = np.loadtxt(out / "gblend_weights_history.csv", delimiter=",")
+    if rc != 0 or manager.latest_step() != CLI_EPOCHS + 1 \
+            or step_after != step_before + spe \
+            or resumed.shape != (CLI_EPOCHS + 2, 3) \
+            or not np.array_equal(resumed[:-1], blend):
+        raise AssertionError(f"resume: rc {rc}, latest checkpoint "
+                             f"{manager.latest_step()}, step {step_before} "
+                             f"-> {step_after}, blend history "
+                             f"{resumed.tolist()}")
+    print(f"cli --resume: epoch {CLI_EPOCHS + 1} ran, step {step_before} -> "
+          f"{step_after}; blend history {len(resumed)} rows")
+
+    config["Hyperparameters"]["model_weights"] = str(
+        out / "best_surv_model.npz")
+    trained = workdir / "trained.json"
+    trained.write_text(json.dumps(config))
+    artifact = workdir / "model.pt"
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "mmnn_sts_torch", "--images", "--preop",
+         "--survival", "--blend", "--split", "--config", str(trained),
+         "--output_path", str(out), "--export_path", str(artifact),
+         "--device", CLI_DEVICE],
+        cwd=run_dir, env={**os.environ, "PYTHONPATH": str(REPO)},
+        capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        raise AssertionError(f"python3 -m mmnn_sts_torch --export_path "
+                             f"failed: {res.stderr[-3000:]}")
+    rng = np.random.default_rng(seed + 5)
+    answer = ServingModel(str(artifact), device=CLI_DEVICE)({
+        "image": (rng.normal(size=(3,) + (CLI_SIDE,) * 3 + (2,)) ** 2 * 500
+                  ).astype(np.float32),
+        "clinical": rng.normal(size=(3, 11)).astype(np.float32)})
+    if answer.shape != (3, 2) or not np.isfinite(answer).all():
+        raise AssertionError(f"served answer {answer}")
+    print(f"cli export (python3 -m mmnn_sts_torch --export_path, a "
+          f"subprocess): {time.perf_counter() - t0:.1f} s; ServingModel on "
+          f"the card, batch 3: {answer.tolist()}")
+    return run_counts
 
 
 def main(argv=None) -> int:
@@ -895,6 +1287,11 @@ def main(argv=None) -> int:
     # float32 matmuls in full float32 (the plain op's reference product);
     # cuDNN convolutions keep PyTorch's default (TF32 allowed)
     torch.backends.cuda.matmul.allow_tf32 = False
+    import importlib.util
+
+    print("host packages: " + json.dumps({
+        m: bool(importlib.util.find_spec(m))
+        for m in ("pandas", "matplotlib", "yaml")}))
     print(f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
 
@@ -913,6 +1310,8 @@ def main(argv=None) -> int:
         launches = serve_phase(fd, args.seed, Path(tmp))
     backward = backward_phase(fd, args.seed, REPO / "chiprun_out")
     train_launches = train_phase(fd, args.seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = cli_phase(fd, args.seed, Path(tmp))
 
     main_path = [r for r in rows if r["batch"] == 8 and r["dtype"] == "float32"]
     entry = {
@@ -932,6 +1331,10 @@ def main(argv=None) -> int:
         "library_ms": None,  # no single PyTorch call computes this function
         # the flagship training superstep: 58 calls per microbatch x 8
         "launches_per_superstep": train_launches,
+        # the CLI run: 3 epochs of 2 supersteps (464 each) and one
+        # validation forward (58)
+        "launches_cli_run": cli["launches"],
+        "launches_per_cli_epoch": cli["per_epoch"],
         # its backward (the JAX package's _bwd in plain PyTorch), the sum
         # over the 58 shapes of one microbatch of 8
         "backward_ms": sum(r["ms"] for r in backward),

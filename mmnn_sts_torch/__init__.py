@@ -8,10 +8,14 @@ Activations are channels-last, as in the JAX package: public image inputs are
 ``(N, D, H, W, C)``, and inside the networks they are ``(N, C, D, H, W)``
 tensors in ``torch.channels_last_3d`` memory format.
 
-Ported so far: the serving path (export + HTTP server) of the DenseNet121 /
-TinyDenseNet multimodal models and the clinical MLP, and their survival
-training step (``train/steps.survival_train_superstep``: train-mode
-BatchNorm, dropout, the blended Cox loss, SGD-nesterov with OneCycle), with
-the DenseNet bottleneck (BN + ReLU + 1x1x1 conv) as a hand-written CUDA
-kernel (``kernels/csrc/fused_bn_relu_matmul.cu``) under autograd.
+Ported so far: the survival training run of the DenseNet121 / TinyDenseNet
+multimodal models end to end through ``python -m mmnn_sts_torch`` (``cli``):
+the cohort build (``data/``, ``pipeline``), the training augmentation
+(``ops/augment``), the device-resident loader, the superstep
+(``train/steps``: train-mode BatchNorm, dropout, the blended Cox loss,
+SGD-nesterov with OneCycle), the epoch loop with validation, checkpoints
+and blend updates (``train/loop``, ``train/checkpoint``); and the serving
+path (export + HTTP server) of those models and the clinical MLP. The
+DenseNet bottleneck (BN + ReLU + 1x1x1 conv) is a hand-written CUDA kernel
+(``kernels/csrc/fused_bn_relu_matmul.cu``) under autograd.
 """

@@ -1,9 +1,12 @@
-"""Two-level configuration: CLI flags + YAML config file.
+"""Two-level configuration: CLI flags + a YAML or JSON config file.
 
-A copy of the JAX package's config.py, so that both packages read the same YAML
-files into the same typed dataclasses. The only difference: ``yaml`` is
-imported inside ``parse_config``, so a ``Config`` built from the dataclass
-defaults needs no PyYAML.
+A copy of the JAX package's config.py, so that both packages read the same
+files into the same typed dataclasses. The differences: ``parse_config``
+reads a path ending in ``.json`` with ``json`` and imports ``yaml`` only
+for any other path, so neither a ``Config`` built from the dataclass
+defaults nor a JSON config needs PyYAML (JSON is a subset of YAML, so the
+JAX package's ``parse_config`` reads the same file into the same
+``Config``).
 
 Validation: t1t2 modality requires in_channels == 2.
 """
@@ -108,8 +111,14 @@ class HyperparametersConfig:
 
 @dataclass
 class TPUConfig:
-    """The JAX package's ``TPU:`` section, read so that one YAML file serves
-    both packages. Of these fields the port reads only ``compute_dtype``."""
+    """The JAX package's ``TPU:`` section, read so that one config file
+    serves both packages. The port reads ``compute_dtype``,
+    ``device_resident_dataset`` and ``fused_epoch`` (only their defaults are
+    ported; the others raise ``ConfigurationError``), ``eval_chunk_size``,
+    ``debug_nans``, ``profile_dir`` and ``use_pallas_fused_dense`` (the key
+    layout of the written ``.npz``). ``microbatch_group`` is parsed and not
+    read: it groups microbatches inside the JAX superstep's program and
+    changes no result."""
 
     mesh_shape: list[int] = field(default_factory=lambda: [-1])
     mesh_axes: list[str] = field(default_factory=lambda: ["data"])
@@ -184,11 +193,17 @@ def _build_section(cls, raw: dict[str, Any], aliases: dict[str, str]):
 
 
 def parse_config(path: str) -> Config:
-    """Load + validate a YAML config file into a typed Config."""
-    import yaml
-
+    """Load + validate a YAML (or, for a ``.json`` path, JSON) config file
+    into a typed Config."""
     with open(path) as f:
-        raw = yaml.safe_load(f) or {}
+        if str(path).endswith(".json"):
+            import json
+
+            raw = json.load(f) or {}
+        else:
+            import yaml
+
+            raw = yaml.safe_load(f) or {}
     cfg = Config()
     for section, (attr, cls, aliases) in _YAML_SECTION_KEYS.items():
         if section in raw and isinstance(raw[section], dict):
@@ -220,3 +235,23 @@ def validate_config(cfg: Config) -> None:
             f"Unsupported cox_ties: {cfg.hyperparameters.cox_ties} "
             "(options: 'breslow', 'efron')"
         )
+
+
+def get_image_path(cfg: Config):
+    """modality -> image path(s); a (t1, t2) tuple for t1t2."""
+    import os
+
+    modality = cfg.image_model.modality.lower()
+    if modality.startswith("t1t2"):
+        return (
+            os.path.join(cfg.data.image_loc, cfg.data.t1_path),
+            os.path.join(cfg.data.image_loc, cfg.data.t2_path),
+        )
+    if modality.startswith("t1"):
+        return os.path.join(cfg.data.image_loc, cfg.data.t1_path)
+    if modality.startswith("t2"):
+        return os.path.join(cfg.data.image_loc, cfg.data.t2_path)
+    raise ConfigurationError(
+        f"Could not recognize requested Image Modality {cfg.image_model.modality}"
+        " \n Options are 't1', 't2', or 't1t2'"
+    )

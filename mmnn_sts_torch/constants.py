@@ -1,8 +1,9 @@
 """Dataset schema constants for the soft-tissue-sarcoma cohort.
 
 A copy of the parts of the JAX package's constants.py that this package
-uses: the column lists behind the config defaults and the MRI intensity
-statistics of the eval transform. The YAML config can override the column lists.
+uses: the column lists behind the config defaults, the cohort-build and
+split constants, the MRI intensity statistics of the transforms and the
+survival super-batch. The YAML config can override the column lists.
 """
 
 HEADERS_TO_CONVERT = [
@@ -32,6 +33,13 @@ POST_OP_PREDICTORS = [
     "LengthOR",
 ]
 
+STRATIFY_BY = [
+    "RT Type (0 = preop, 1 = postop",
+    "Location3",
+    "TumorGrade",
+    "VolumeCutoff",
+]
+
 TARGETS_BINARY = [
     "VitalStatus",
     "Distant metastasis",
@@ -42,6 +50,9 @@ TARGETS_TIME = [
     "Date of Distant Mets",
     "Surgery_Date",
 ]
+
+NECROSIS_COLUMN = "Necrosis % (information not known prior to operation)"
+TUMOR_VOLUME_COLUMN = "TumorVolume (cm^3)"
 
 RADIOMICS_EXCLUDE_COLUMNS = [
     "diagnostics_Versions_PyRadiomics",
@@ -79,6 +90,7 @@ RADIOMICS_SURV_LABEL_COLUMNS = [
 ]
 
 UID = "MRN"
+ANON_UID = "Anon MRN"
 
 # (event-indicator column, duration column) pairs defining the two
 # time-to-event targets: overall survival (VS/OS) and distant metastasis (DM).
@@ -90,3 +102,7 @@ HEADER_PAIRS = [
 # Intensity statistics of the cohort's MRI volumes.
 IMAGE_DATA_MEAN = 286.90859071507913
 IMAGE_DATA_STDDEV = 581.7816096485366
+
+SPATIAL_SIZE = (64, 64, 64)
+# survival optimizer step: 64 samples as accumulated microbatches
+SUPER_BATCH_SIZE = 64

@@ -1,0 +1,293 @@
+"""The survival training loop (counterpart of the JAX package's
+train/loop.py:54-402, its per-superstep path).
+
+Per epoch: the shuffled, wrap-padded superstep indices (``EpochBatcher``),
+one ``survival_train_superstep`` per super-batch gathered on the device
+(the ragged last one with its pad mask), one read-back of the epoch's
+losses and predictions; the train C-index over the first N rows of the
+prediction stream (the shuffled order; the wrap pad is left out);
+validation loss and C-indices; best-model selection on the multimodal
+head's unweighted loss, with the best weights written in the background
+(``AsyncNpzSaver``); the gradient-blend update every
+``blend_update_interval`` epochs from the train predictions (in shuffled
+order, with their events and durations in the same order) and the
+epoch's validation predictions; then the loss and C-index curves and the
+blend history.
+
+With a ``checkpoint_dir`` every epoch is checkpointed (the full state, see
+``train/checkpoint.py``), and a state restored from one resumes at its
+epoch: the loop runs epochs ``state.epoch`` to ``epochs - 1``, so an
+interrupted run resumed with the same settings ends where the run without
+the interruption ends. Each checkpoint's index entry carries the curves and
+the blend history so far, so a resumed run writes them whole. (The JAX
+package checkpoints only the improving epochs and always starts at
+epoch 0.)
+
+``TPU.fused_epoch`` (an XLA whole-epoch program in the JAX package) has no
+counterpart yet (a CUDA graph of the superstep, ROADMAP.md) and raises
+``ConfigurationError``.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ..constants import SUPER_BATCH_SIZE
+from ..data.loader import DeviceDataset, EpochBatcher, gather_superbatch
+from ..exceptions import ConfigurationError
+from ..ops import blending
+from ..ops.metrics import c_indices_per_class
+from ..utils.logging import MetricsWriter, get_logger
+from ..utils.plotting import (
+    save_blend_history,
+    save_c_score_curves,
+    save_loss_curves,
+)
+from . import checkpoint as ckpt_lib
+from .evaluate import survival_eval_split
+from .steps import survival_train_superstep
+
+logger = get_logger()
+
+
+@dataclass
+class LoopConfig:
+    epochs: int = 100
+    batch_size: int = 8
+    super_batch: int = SUPER_BATCH_SIZE
+    blend: bool = False
+    blend_update_interval: int = 5
+    seed: int = 42
+    output_dir: str = "."
+    augment: bool = True
+    checkpoint_dir: str = ""
+    save_params_name: str = ""
+    metrics_path: str = "metrics.jsonl"
+    profile_dir: str = ""
+    ties: str = "breslow"  # Cox tie handling: "breslow" | "efron"
+    # validation forward chunk size; 0 = the whole split at once
+    eval_chunk: int = 0
+    # whole epoch as one program (TPU.fused_epoch): not ported
+    fused_epoch: bool = False
+    # bottleneck key layout of the written .npz ("unfused" | "fused")
+    npz_layout: str = "unfused"
+
+
+@dataclass
+class TrainResult:
+    state: object
+    best_metric: float
+    best_epoch: int
+    history: dict = field(default_factory=dict)
+
+
+def _flatten_epoch_preds(preds: np.ndarray, blend: bool) -> np.ndarray:
+    """(steps, A, [K,] B, C) -> ([K,] N, C) concatenated along samples."""
+    if blend:
+        s, a, k, b, c = preds.shape
+        return preds.transpose(2, 0, 1, 3, 4).reshape(k, s * a * b, c)
+    s, a, b, c = preds.shape
+    return preds.reshape(s * a * b, c)
+
+
+def _dedup_epoch(flat_preds: np.ndarray, n: int, blend: bool) -> np.ndarray:
+    """The first ``n`` rows of the epoch prediction stream: the shuffled
+    order is followed by the wrap pad, so these are the unique samples."""
+    return flat_preds[:, :n] if blend else flat_preds[:n]
+
+
+def _c_indices(preds, events, durations):
+    try:
+        return c_indices_per_class(preds, events, durations)
+    except ZeroDivisionError:
+        return [float("nan")] * preds.shape[1]
+
+
+def train_survival(
+    state,
+    train_ds: DeviceDataset,
+    val_ds: DeviceDataset,
+    cfg: LoopConfig,
+) -> TrainResult:
+    if cfg.fused_epoch:
+        raise ConfigurationError(
+            "TPU.fused_epoch (the whole epoch as one program) is not ported "
+            "to mmnn_sts_torch yet (ROADMAP.md: a CUDA graph of the "
+            "superstep); set it to false")
+    accum = max(1, cfg.super_batch // cfg.batch_size)
+    batcher = EpochBatcher(
+        train_ds.num_samples, cfg.batch_size, accum, seed=cfg.seed,
+        two_level=True,
+    )
+    metrics = MetricsWriter(os.path.join(cfg.output_dir, cfg.metrics_path))
+    manager = (
+        ckpt_lib.CheckpointManager(cfg.checkpoint_dir) if cfg.checkpoint_dir else None
+    )
+    npz_saver = ckpt_lib.AsyncNpzSaver(cfg.npz_layout)
+    device = train_ds.device
+
+    best_loss, best_epoch, best_c_indices = np.inf, -1, None
+    history = {"train_loss": [], "val_loss": [], "train_c": [], "val_c": [],
+               "blend": [state.blend.weights.cpu().tolist()]}
+    first_epoch = int(state.epoch)
+    if manager is not None and first_epoch:
+        done = manager.metrics(manager.latest_step())
+        best_loss = done.get("best_loss", np.inf)
+        best_epoch = done.get("best_epoch", -1)
+        best_c_indices = done.get("best_c_indices")
+        history = done.get("history", history)
+    train_losses, val_losses = history["train_loss"], history["val_loss"]
+    train_cs, val_cs = history["train_c"], history["val_c"]
+    blend_history = history["blend"]
+
+    # host copies of the targets: epoch statistics gather from these
+    host_events = train_ds.events.cpu().numpy()
+    host_durations = train_ds.durations.cpu().numpy()
+    val_events = val_ds.events.cpu().numpy()
+    val_durations = val_ds.durations.cpu().numpy()
+    n_unique = train_ds.num_samples
+
+    tail_mask = (
+        torch.as_tensor(batcher.pad_mask()[-1]).to(device)
+        if batcher.ragged else None
+    )
+    steps_total = batcher.steps_per_epoch()
+
+    for epoch in range(first_epoch, cfg.epochs):
+        logger.info("-" * 10)
+        logger.info(f"epoch {epoch + 1}/{cfg.epochs}")
+        profiler = None
+        if cfg.profile_dir and epoch == 1:
+            profiler = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU] + (
+                [torch.profiler.ProfilerActivity.CUDA]
+                if device.type == "cuda" else []))
+            profiler.__enter__()
+
+        epoch_t0 = time.perf_counter()
+        order = batcher.epoch_indices(epoch)
+        step_losses, step_preds = [], []
+        for s, idx in enumerate(order):
+            batch = gather_superbatch(train_ds, idx)
+            aux = survival_train_superstep(
+                state, batch["inputs"], batch["events"], batch["durations"],
+                blend=cfg.blend, augment=cfg.augment, ties=cfg.ties,
+                mask=tail_mask if s == steps_total - 1 else None,
+            )
+            step_losses.append(aux["loss"])
+            step_preds.append(aux["preds"])
+        # one read-back per epoch
+        epoch_loss = torch.stack(step_losses).sum().item()
+        preds_host = torch.stack(step_preds).cpu().numpy()
+
+        if profiler is not None:
+            profiler.__exit__(None, None, None)
+            os.makedirs(cfg.profile_dir, exist_ok=True)
+            profiler.export_chrome_trace(
+                os.path.join(cfg.profile_dir, f"epoch{epoch + 1}.json"))
+
+        flat_order = order.reshape(-1)
+        epoch_samples = int(flat_order.size)
+        train_preds = _dedup_epoch(
+            _flatten_epoch_preds(preds_host, cfg.blend), n_unique, cfg.blend)
+        train_events = host_events[flat_order[:n_unique]]
+        train_durations = host_durations[flat_order[:n_unique]]
+        head0 = train_preds[0] if cfg.blend else train_preds
+        train_c = _c_indices(head0, train_events, train_durations)
+        train_cs.append(float(np.mean(train_c)))
+
+        epoch_dt = time.perf_counter() - epoch_t0
+        epoch_loss = epoch_loss / train_ds.num_samples
+        train_losses.append(epoch_loss)
+        logger.info(
+            f"epoch {epoch + 1} average loss: {epoch_loss:.4f} "
+            f"({epoch_samples / max(epoch_dt, 1e-9):.1f} samples/s)"
+        )
+
+        out = survival_eval_split(state, val_ds, blend=cfg.blend,
+                                  ties=cfg.ties, chunk=cfg.eval_chunk)
+        val_preds = out["preds"]
+        v_head0 = val_preds[0] if cfg.blend else val_preds
+        c_indices = _c_indices(v_head0, val_events, val_durations)
+        mean_c = float(np.mean(c_indices))
+        val_cs.append(mean_c)
+        val_loss = out["loss"] / val_ds.num_samples
+        val_losses.append(val_loss)
+        selection_loss = out["selection_loss"]
+        logger.info(f"All C-indexes: {c_indices}")
+        logger.info(f"Mean C-index: {mean_c}")
+        logger.info(f"validation loss: {val_loss}")
+
+        if selection_loss < best_loss:
+            best_loss = selection_loss
+            best_epoch = epoch + 1
+            best_c_indices = c_indices
+            if cfg.save_params_name:
+                npz_saver.submit(
+                    os.path.join(cfg.output_dir, cfg.save_params_name),
+                    state.model)
+            logger.info("saved new best metric model")
+        logger.info(
+            f"current epoch: {epoch + 1} current loss: {selection_loss:.4f}"
+            f" best loss: {best_loss:.4f} at epoch: {best_epoch}"
+            f" best c_indices: {best_c_indices}"
+        )
+        metrics.write(
+            kind="survival_epoch",
+            epoch=epoch + 1,
+            train_loss=epoch_loss,
+            val_loss=val_loss,
+            train_c=train_cs[-1],
+            val_c=mean_c,
+            selection_loss=selection_loss,
+            epoch_seconds=epoch_dt,
+            samples_per_sec=epoch_samples / max(epoch_dt, 1e-9),
+        )
+
+        if cfg.blend and (epoch + 1) % cfg.blend_update_interval == 0:
+            logger.info("Updating gradient blender weights")
+
+            def on_device(a):
+                return torch.as_tensor(np.asarray(a)).to(device)
+
+            tr_head = blending.surv_head_losses(
+                on_device(train_preds), on_device(train_events),
+                on_device(train_durations), ties=cfg.ties)
+            va_head = blending.surv_head_losses(
+                on_device(val_preds), on_device(val_events),
+                on_device(val_durations), ties=cfg.ties)
+            state.blend = blending.blend_update(state.blend, tr_head, va_head,
+                                                True)
+            blend_history.append(state.blend.weights.cpu().tolist())
+            logger.info(f"new weights : {blend_history[-1]}")
+
+        state.epoch += 1
+        if manager is not None:
+            manager.save(epoch + 1, state, {
+                "selection_metric": -selection_loss,
+                "best_loss": float(best_loss), "best_epoch": best_epoch,
+                "best_c_indices": best_c_indices, "history": history})
+
+    if cfg.blend:
+        save_blend_history(blend_history, cfg.output_dir)
+    save_loss_curves(train_losses, val_losses, cfg.output_dir)
+    save_c_score_curves(train_cs, val_cs, cfg.output_dir)
+    npz_saver.close()
+    metrics.close()
+    return TrainResult(
+        state=state,
+        best_metric=best_loss,
+        best_epoch=best_epoch,
+        history={
+            "train_loss": train_losses,
+            "val_loss": val_losses,
+            "train_c": train_cs,
+            "val_c": val_cs,
+            "best_c_indices": best_c_indices,
+        },
+    )

@@ -18,20 +18,27 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.augment import eval_transform_batch
+from ..ops.augment import eval_transform_batch, train_augment_batch
 from ..ops.blending import blended_surv_loss
 from ..ops.cox import multi_cox_loss
 from .state import TrainState
 
 
-def _eval_transform_inputs(inputs):
-    """``eval_transform`` of every volume of the image modality (a dict's
-    ``"image"``, or a bare (B, D, H, W, C) batch); clinical rows pass."""
+def _transform_inputs(inputs, generator=None):
+    """The image transform of the image modality (a dict's ``"image"``, or
+    a bare (B, D, H, W, C) batch); clinical rows pass (steps.py:39-55).
+    With a ``generator``, the random training augmentation drawn from it;
+    without, the deterministic eval transform."""
+    def transform(vols):
+        if generator is None:
+            return eval_transform_batch(vols)
+        return train_augment_batch(vols, generator)
+
     if isinstance(inputs, dict):
         if "image" not in inputs:
             return inputs
-        return {**inputs, "image": eval_transform_batch(inputs["image"])}
-    return eval_transform_batch(inputs) if inputs.dim() >= 4 else inputs
+        return {**inputs, "image": transform(inputs["image"])}
+    return transform(inputs) if inputs.dim() >= 4 else inputs
 
 
 def _microbatch(inputs, i: int):
@@ -66,17 +73,13 @@ def survival_train_superstep(
     ``state`` in place and returns ``{"loss": summed loss, "preds":
     (A, [K,] B, C)}``.
 
-    ``generator`` feeds dropout (default: ``state.generator``). ``mask``
-    (A, B) marks the valid samples of a wrap-padded ragged tail: masked
-    samples are left out of the losses, the gradients and the BatchNorm
-    statistics (steps.py:176-182, 221-225). ``augment=False`` applies the
-    deterministic eval transform; the random training augmentation is not
-    ported yet.
+    ``generator`` feeds the augmentation and dropout (default:
+    ``state.generator``). ``mask`` (A, B) marks the valid samples of a
+    wrap-padded ragged tail: masked samples are left out of the losses, the
+    gradients and the BatchNorm statistics (steps.py:176-182, 221-225).
+    ``augment=True`` augments each microbatch (``ops/augment``, one draw per
+    volume); ``augment=False`` applies the deterministic eval transform.
     """
-    if augment:
-        raise NotImplementedError(
-            "training augmentation (augment=True) is not ported to "
-            "mmnn_sts_torch yet (see ROADMAP.md, Queue 1); pass augment=False")
     if group < 1:
         raise ValueError(f"group must be >= 1, got {group}")
     generator = state.generator if generator is None else generator
@@ -86,8 +89,9 @@ def survival_train_superstep(
     outs = []
     for i in range(events.shape[0]):
         mb_mask = None if mask is None else mask[i]
-        out = model(_eval_transform_inputs(_microbatch(inputs, i)),
-                    sample_mask=mb_mask, generator=generator)
+        mb_inputs = _transform_inputs(_microbatch(inputs, i),
+                                      generator if augment else None)
+        out = model(mb_inputs, sample_mask=mb_mask, generator=generator)
         loss, _ = _survival_loss(state, out, events[i], durations[i], blend,
                                  ties, mb_mask)
         loss.backward()
@@ -108,7 +112,7 @@ def survival_eval_step(state: TrainState, inputs, events, durations,
     """Validation forward on leaves (B, ...): eval mode (running BatchNorm
     statistics, no dropout) after the eval transform. Returns ``{"loss",
     "selection_loss", "preds"}`` (steps.py:324-334)."""
-    out = state.model.eval()(_eval_transform_inputs(inputs))
+    out = state.model.eval()(_transform_inputs(inputs))
     loss, selection = _survival_loss(state, out, events, durations, blend,
                                      ties)
     return {"loss": loss, "selection_loss": selection, "preds": out}

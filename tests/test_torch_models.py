@@ -189,8 +189,9 @@ def test_registry_rejects_what_is_not_ported():
 
 
 def test_train_mode_is_refused():
-    """Train mode runs; what training still refuses is the random
-    augmentation, which is not ported yet."""
+    """Train mode runs, the random augmentation included (clinical rows
+    pass it unchanged); what the superstep still refuses is a microbatch
+    group below 1, before it changes the state."""
     from mmnn_sts_torch.train.schedule import make_optimizer
     from mmnn_sts_torch.train.state import create_train_state
     from mmnn_sts_torch.train.steps import survival_train_superstep
@@ -198,8 +199,9 @@ def test_train_mode_is_refused():
     model = MLP(in_channels=11, out_channels=2)
     state = create_train_state(model, *make_optimizer(model.parameters(),
                                                       1e-2, 1, 1))
-    with pytest.raises(NotImplementedError, match="augmentation.*ROADMAP"):
-        survival_train_superstep(state, torch.zeros(1, 4, 11),
-                                 torch.ones(1, 4, 2), torch.ones(1, 4, 2),
-                                 augment=True)
+    args = (torch.zeros(1, 4, 11), torch.ones(1, 4, 2), torch.ones(1, 4, 2))
+    with pytest.raises(ValueError, match="group"):
+        survival_train_superstep(state, *args, augment=True, group=0)
     assert state.step == 0
+    aux = survival_train_superstep(state, *args, augment=True)
+    assert state.step == 1 and torch.isfinite(aux["loss"])
