@@ -88,7 +88,26 @@ Phases; any failure is an uncaught exception and a nonzero exit:
    weights, and ServingModel on the card answers a batch-3 request with a
    finite (3, 2). Prints the cohort build's seconds, each epoch's seconds
    and samples/s, the best save's host stall and the artifacts written.
-8. Prints the kernels' JSON line, the card's line, and last
+8. Inference and classification, on the CLI phase's cohort and best
+   weights, through mmnn_sts_torch.cli.main at full width: --inference
+   --survival --blend with Grad-CAM on the 15 test patients (rc 0, a
+   finite survival_model_predictions.csv row a patient, one
+   _patient_{uid}/ directory a patient with four 64^3 NIfTI volumes, each
+   att_map in [0, 1] with its max above 0.5, kernel launches = 58 x (eval
+   steps + 2 x patients)); one patient's maps with the kernel against the
+   plain op on the card (<= 1e-3, cuDNN TF32 off) and against the CPU
+   (<= 1e-2); --bootstrap --no_gradcam (50 resamples, means and stds in
+   [0, 1], the resamples' C-indices on the card against the CPU <= 1e-6,
+   and their device time); --classification --split --epochs 2 in a run
+   directory of its own (2 classification_epoch rows, F1s in [0, 1] or
+   NaN, blend weights that moved and sum to 1, a model.npz that loads
+   strictly, launches = (steps + validation forwards) x 58); then
+   --inference --classification on that model.npz with Grad-CAM (the
+   directory names' bits agree with model_probabilities.csv, launches =
+   58 x (eval steps + patients)). Prints each run's seconds, the Grad-CAM
+   export's seconds a patient and attention_maps' CUDA-event ms, the
+   classification epochs' seconds and samples/s.
+9. Prints the kernels' JSON line, the card's line, and last
    {"ok": true, "device": {...}}.
 
 Per-shape kernel results go to chiprun_out/chip_smoke_kernels.jsonl, the
@@ -98,6 +117,7 @@ backward's to chiprun_out/chip_smoke_backward.jsonl.
 from __future__ import annotations
 
 import argparse
+import copy
 import functools
 import io
 import json
@@ -1265,6 +1285,313 @@ def cli_phase(fd, seed: int, workdir: Path) -> dict:
     return run_counts
 
 
+def recorded(fn, calls: list):
+    """``fn``, appending each call's (args, kwargs, result) to ``calls``."""
+    @functools.wraps(fn)
+    def call(*args, **kw):
+        out = fn(*args, **kw)
+        calls.append((args, kw, out))
+        return out
+
+    return call
+
+
+def event_ms(fn, iters: int = 3) -> float:
+    """Median CUDA-event time of ``fn`` over ``iters`` calls after a
+    warm-up: the device timeline between two markers, so where the host
+    paces the work its gaps are in it."""
+    fn()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def kernel_time(fn) -> tuple[float, int]:
+    """(ms, launches) of the CUDA kernels of one call of ``fn`` after a
+    warm-up, from torch.profiler: the device's busy time, without the
+    host's gaps between kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    return (sum(e.device_time_total for e in kernels) / 1e3,
+            sum(e.count for e in kernels))
+
+
+def read_csv_rows(path: Path) -> tuple[str, np.ndarray]:
+    lines = path.read_text().splitlines()
+    return lines[0], np.array([[float(v) for v in line.split(",")]
+                               for line in lines[1:]])
+
+
+def infer_phase(fd, seed: int, workdir: Path) -> dict:
+    """Inference and classification through the port's CLI at full width,
+    on the CLI phase's cohort and best weights (see the module docstring,
+    phase 8). Returns the kernel launches of its runs."""
+    from mmnn_sts_torch import cli
+    from mmnn_sts_torch.config import parse_config
+    from mmnn_sts_torch.data.nifti import load_nifti
+    from mmnn_sts_torch.infer import run as infer_run
+    from mmnn_sts_torch.models import build_model
+    from mmnn_sts_torch.train import checkpoint, evaluate, loop
+
+    run_dir = workdir / "run"
+    config = json.loads((workdir / "trained.json").read_text())
+    config["Preprocessing"] = {f"{s}_uid_location": str(run_dir /
+                                                        f"{s}_uids.txt")
+                               for s in ("train", "val", "test")}
+    infer_config = workdir / "infer.json"
+    infer_config.write_text(json.dumps(config))
+    test_uids = (run_dir / "test_uids.txt").read_text().split()
+    per_forward = sum(build_model(parse_config(str(infer_config)), True, True,
+                                  False, True).image_model.block_config)
+
+    def run(args, where: Path, patches):
+        cwd = Path.cwd()
+        os.chdir(where)
+        try:
+            for p in patches:
+                p.start()
+            fd.fused_bn_relu_matmul.launches = 0
+            t0 = time.perf_counter()
+            rc = cli.main(args + ["--device", CLI_DEVICE])
+            torch.cuda.synchronize()
+            return rc, time.perf_counter() - t0, \
+                fd.fused_bn_relu_matmul.launches
+        finally:
+            for p in patches:
+                p.stop()
+            os.chdir(cwd)
+
+    # 1. survival inference with the attention maps
+    counts, maps_calls, survival_calls = {}, [], []
+    out = workdir / "infer_survival"
+    rc, wall, launches = run(
+        ["--inference", "--images", "--preop", "--survival", "--blend",
+         "--config", str(infer_config), "--output_path", str(out)], run_dir, [
+            mock.patch.object(evaluate, "survival_eval_step", counted(
+                evaluate.survival_eval_step, counts, "eval_steps")),
+            mock.patch.object(infer_run, "export_attention_maps", counted(
+                infer_run.export_attention_maps, counts, "export")),
+            mock.patch.object(infer_run, "attention_maps", recorded(
+                infer_run.attention_maps, maps_calls)),
+            mock.patch.object(infer_run, "inference_survival", recorded(
+                infer_run.inference_survival, survival_calls))])
+    n = len(test_uids)
+    expected = per_forward * (counts["eval_steps"] + 2 * n)
+    if rc != 0 or launches != expected:
+        raise AssertionError(
+            f"survival inference: rc {rc}, {launches} kernel launches, not "
+            f"{per_forward} x ({counts['eval_steps']} eval steps + 2 x {n} "
+            f"patients) = {expected}")
+    header, rows = read_csv_rows(out / "survival_model_predictions.csv")
+    if header != ("MRN,VS_pred,DM_pred,VS_event,DM_event,VS_duration,"
+                  "DM_duration") or rows.shape != (n, 7) \
+            or not np.isfinite(rows).all() \
+            or sorted(rows[:, 0].astype(int)) != sorted(map(int, test_uids)):
+        raise AssertionError(f"survival_model_predictions.csv: {header}, "
+                             f"{rows.shape}")
+    dirs = sorted(os.listdir(out / "attention_maps"))
+    if dirs != sorted(f"_patient_{u}" for u in test_uids):
+        raise AssertionError(f"attention map directories {dirs}")
+    peaks = []
+    for d in dirs:
+        for name in ("t1image", "t2image", "att_map", "att_map_cls1"):
+            vol = load_nifti(str(out / "attention_maps" / d / f"{name}.nii.gz"))
+            if vol.shape != (CLI_SIDE,) * 3:
+                raise AssertionError(f"{d}/{name}: shape {vol.shape}")
+            if name.startswith("att_map"):
+                if not (vol.min() >= 0.0 and vol.max() <= 1.0
+                        and vol.max() > 0.5):
+                    raise AssertionError(f"{d}/{name}: range [{vol.min()}, "
+                                         f"{vol.max()}]")
+                peaks.append(vol.max())
+    export_s = counts["export_s"][0]
+    args, kw, _ = maps_calls[0]  # the first patient's call
+    model, inputs = args[:2]
+    maps_ms = event_ms(lambda: infer_run.attention_maps(*args, **kw))
+    maps_busy, maps_kernels = kernel_time(
+        lambda: infer_run.attention_maps(*args, **kw))
+    c_indices = survival_calls[0][2]["c_indices"]
+    print(f"infer survival: rc {rc}, {wall:.1f} s for {n} test patients; "
+          f"kernel launches {launches} = {per_forward} x "
+          f"({counts['eval_steps']} eval step + 2 x {n}); C-indices "
+          f"{c_indices}; Grad-CAM export {export_s:.2f} s = "
+          f"{export_s / n * 1e3:.1f} ms a patient (its forward, maps and "
+          f"four NIfTI writes); attention_maps alone, one patient: "
+          f"{maps_ms:.2f} ms (CUDA events, median of 3), of which CUDA "
+          f"kernels {maps_busy:.2f} ms in {maps_kernels} launches "
+          f"(torch.profiler); att_map peaks {min(peaks):.3f}.."
+          f"{max(peaks):.3f}")
+
+    # 2. Grad-CAM on the card: the kernel against the plain op, and the CPU
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        got = infer_run.attention_maps(*args, **kw)
+        with mock.patch.object(fd, "fused_bn_relu_matmul",
+                               fd.fused_bn_relu_matmul_reference):
+            plain = infer_run.attention_maps(*args, **kw)
+        with mock.patch.object(fd, "fused_bn_relu_matmul",
+                               reassociated_reference):
+            control = infer_run.attention_maps(*args, **kw)
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    cpu_model = copy.deepcopy(model).cpu()
+    cpu_maps = infer_run.attention_maps(
+        cpu_model, {k: v.cpu() for k, v in inputs.items()}, *args[2:], **kw)
+    vs_plain = (got - plain).abs().max().item()
+    vs_control = (control - plain).abs().max().item()
+    vs_cpu = (got.cpu() - cpu_maps).abs().max().item()
+    print(f"infer Grad-CAM, patient {test_uids[0]}, cudnn.allow_tf32 False: "
+          f"kernel vs plain op max|diff| {vs_plain:.3e} (limit 1e-3); the "
+          f"plain op with its product summed in two halves of K vs plain "
+          f"{vs_control:.3e}; card vs CPU {vs_cpu:.3e} (limit 1e-2)")
+    if not (vs_plain <= 1e-3 and vs_cpu <= 1e-2):
+        raise AssertionError("the attention maps on the card disagree with "
+                             "the plain op's or the CPU's")
+    del cpu_model, cpu_maps
+
+    # 3. the bootstrap
+    boot_calls, survival_calls = [], []
+    out = workdir / "infer_bootstrap"
+    rc, boot_wall, boot_launches = run(
+        ["--inference", "--images", "--preop", "--survival", "--blend",
+         "--bootstrap", "--no_gradcam", "--config", str(infer_config),
+         "--output_path", str(out)], run_dir, [
+            mock.patch.object(infer_run, "bootstrap_cindices", recorded(
+                infer_run.bootstrap_cindices, boot_calls)),
+            mock.patch.object(infer_run, "inference_survival", recorded(
+                infer_run.inference_survival, survival_calls))])
+    res = survival_calls[0][2]
+    (preds, events, durations, resamples), _, (cs, _) = boot_calls[0]
+    if rc != 0 or resamples.shape[0] != 50 or len(res["resample_c"]) < 1 \
+            or not all(np.isfinite(res[k]).all() and (res[k] >= 0).all()
+                       and (res[k] <= 1).all() for k in ("mean_c", "std_c")):
+        raise AssertionError(f"bootstrap: rc {rc}, {resamples.shape[0]} "
+                             f"resamples, means {res['mean_c']}, stds "
+                             f"{res['std_c']}")
+    cpu_cs, _ = infer_run.bootstrap_cindices(
+        preds.cpu(), events.cpu(), durations.cpu(), resamples.cpu())
+    vs_cpu = np.nanmax(np.abs(cs.cpu().numpy() - cpu_cs.numpy()))
+    if not (vs_cpu <= 1e-6 and torch.equal(cs.isnan().cpu(), cpu_cs.isnan())):
+        raise AssertionError(f"bootstrap C-indices, card vs CPU {vs_cpu}")
+    boot_ms, boot_host_ms, _ = time_calls(lambda: infer_run.bootstrap_cindices(
+        preds, events, durations, resamples))
+    boot_busy, boot_kernels = kernel_time(lambda: infer_run.bootstrap_cindices(
+        preds, events, durations, resamples))
+    print(f"infer bootstrap: rc {rc}, {boot_wall:.1f} s; {resamples.shape[0]}"
+          f" resamples of {n}, {len(res['resample_c'])} kept; mean C "
+          f"{res['mean_c'].tolist()}, std {res['std_c'].tolist()}; card vs "
+          f"CPU max|diff| {vs_cpu:.1e} (limit 1e-6); the batched C-index "
+          f"(2 classes x {resamples.shape[0]} resamples): CUDA kernels "
+          f"{boot_busy:.4f} ms in {boot_kernels} launches (torch.profiler), "
+          f"{boot_ms:.4f} ms a call queued behind a sleep, {boot_host_ms:.4f}"
+          f" ms of host time a call; the run's kernel launches "
+          f"{boot_launches}")
+
+    # 4. classification training, in a run directory of its own
+    class_dir = workdir / "run_class"
+    class_dir.mkdir()
+    counts = {}
+    out = class_dir / "out"
+    epochs = 2
+    rc, wall, class_launches = run(
+        ["--images", "--preop", "--classification", "--blend", "--split",
+         "--config", str(workdir / "config.json"), "--epochs", str(epochs),
+         "--blend_update_interval", "1", "--output_path", str(out),
+         "--checkpoint_dir", str(class_dir / "ck")], class_dir, [
+            mock.patch.object(loop, "classification_train_step", counted(
+                loop.classification_train_step, counts, "steps")),
+            mock.patch.object(evaluate, "classification_eval_step", counted(
+                evaluate.classification_eval_step, counts, "val_forwards"))])
+    rows = [json.loads(x) for x in (out / "metrics.jsonl").read_text()
+            .splitlines()]
+    blend = np.loadtxt(out / "gblend_weights_history.csv", delimiter=",")
+    if rc != 0 or [r["kind"] for r in rows] != ["classification_epoch"] * \
+            epochs or not all(
+                np.isfinite([r["train_loss"], r["val_loss"]]).all()
+                and all(np.isnan(r[k]) or 0.0 <= r[k] <= 1.0
+                        for k in ("train_f1", "val_f1")) for r in rows) \
+            or not (blend.shape == (epochs + 1, 3)
+                    and np.allclose(blend.sum(1), 1.0, atol=1e-5)
+                    and not np.allclose(blend[-1], blend[0])):
+        raise AssertionError(f"classification: rc {rc}, rows {rows}, blend "
+                             f"{blend.tolist()}")
+    fresh = build_model(parse_config(str(workdir / "config.json")), True,
+                        True, False, True)
+    checkpoint.load_params_npz(str(out / "model.npz"), fresh)
+    expected = (counts["steps"] + counts["val_forwards"]) * per_forward
+    if class_launches != expected:
+        raise AssertionError(
+            f"classification launched the kernel {class_launches} times, not"
+            f" ({counts['steps']} steps + {counts['val_forwards']} validation"
+            f" forwards) x {per_forward} = {expected}")
+    print(f"infer classification training: rc {rc}, {wall:.1f} s; "
+          f"{counts['steps']} steps of {TRAIN_BATCH} ({counts['steps'] // epochs}"
+          f" an epoch), {counts['val_forwards']} validation forwards; kernel "
+          f"launches {class_launches} = {expected} expected; blend weights "
+          f"{blend[-1].tolist()}")
+    for r in rows:
+        print(f"  epoch {r['epoch']}: {r['epoch_seconds']:.2f} s, "
+              f"{r['samples_per_sec']:.1f} samples/s (host clock), train loss"
+              f" {r['train_loss']:.4f}, val loss {r['val_loss']:.4f}, train "
+              f"F1 {r['train_f1']:.3f}, val F1 {r['val_f1']:.3f}")
+
+    # 5. classification inference on the weights it trained
+    config = json.loads((workdir / "config.json").read_text())
+    config["Hyperparameters"]["model_weights"] = str(out / "model.npz")
+    config["Preprocessing"] = {f"{s}_uid_location": str(class_dir /
+                                                        f"{s}_uids.txt")
+                               for s in ("train", "val", "test")}
+    class_config = workdir / "infer_class.json"
+    class_config.write_text(json.dumps(config))
+    class_test = (class_dir / "test_uids.txt").read_text().split()
+    counts = {}
+    out = workdir / "infer_classification"
+    rc, wall, infer_launches = run(
+        ["--inference", "--images", "--preop", "--classification", "--blend",
+         "--config", str(class_config), "--output_path", str(out)],
+        class_dir, [mock.patch.object(evaluate, "classification_eval_step",
+                                      counted(evaluate.classification_eval_step,
+                                              counts, "eval_steps"))])
+    header, rows = read_csv_rows(out / "model_probabilities.csv")
+    dirs = set(os.listdir(out / "attention_maps"))
+    want_dirs = set()
+    for row in rows:
+        labels = "".join(str(int(v)) for v in row[3:5])
+        preds = "".join(str(int(v > 0.5)) for v in row[1:3])
+        correct = "".join("1" if a == b else "0" for a, b in zip(labels, preds))
+        want_dirs.add(f"{correct}_{labels}_{preds}__patient_{int(row[0])}")
+    expected = per_forward * (counts["eval_steps"] + len(class_test))
+    if rc != 0 or header != "0,1,2,3,4" or rows.shape != (len(class_test), 5) \
+            or not ((rows[:, 1:3] >= 0) & (rows[:, 1:3] <= 1)).all() \
+            or dirs != want_dirs or infer_launches != expected:
+        raise AssertionError(
+            f"classification inference: rc {rc}, {header}, {rows.shape}, "
+            f"directories {sorted(dirs)} vs {sorted(want_dirs)}, launches "
+            f"{infer_launches} vs {expected}")
+    print(f"infer classification: rc {rc}, {wall:.1f} s for "
+          f"{len(class_test)} test patients; kernel launches {infer_launches}"
+          f" = {per_forward} x ({counts['eval_steps']} eval step + "
+          f"{len(class_test)} patients); directories agree with "
+          f"model_probabilities.csv")
+    return {"survival": launches, "classification": infer_launches,
+            "per_classification_epoch": class_launches // epochs}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1312,6 +1639,7 @@ def main(argv=None) -> int:
     train_launches = train_phase(fd, args.seed)
     with tempfile.TemporaryDirectory() as tmp:
         cli = cli_phase(fd, args.seed, Path(tmp))
+        infer = infer_phase(fd, args.seed, Path(tmp))
 
     main_path = [r for r in rows if r["batch"] == 8 and r["dtype"] == "float32"]
     entry = {
@@ -1335,6 +1663,13 @@ def main(argv=None) -> int:
         # validation forward (58)
         "launches_cli_run": cli["launches"],
         "launches_per_cli_epoch": cli["per_epoch"],
+        # --inference of the 15 test patients: 58 x (1 eval step + 2 x 15:
+        # each patient's Grad-CAM forward and its own forward); the same
+        # for classification with one forward a patient; a classification
+        # epoch: (9 steps + 1 validation forward) x 58
+        "launches_inference_survival": infer["survival"],
+        "launches_inference_classification": infer["classification"],
+        "launches_per_classification_epoch": infer["per_classification_epoch"],
         # its backward (the JAX package's _bwd in plain PyTorch), the sum
         # over the 58 shapes of one microbatch of 8
         "backward_ms": sum(r["ms"] for r in backward),

@@ -2,6 +2,10 @@
 
     python -m mmnn_sts_torch --images --preop --survival --blend --split \\
         --config config.yaml [--device cuda]
+    python -m mmnn_sts_torch --inference --images --preop --survival \\
+        --blend [--bootstrap] [--no_gradcam] --config config.yaml
+    python -m mmnn_sts_torch --images --preop --classification --blend \\
+        --split --config config.yaml
 
 The same flags, string-boolean mirrors (``--use_images`` etc.) and
 flag-combination asserts as the JAX package's CLI, its config overrides
@@ -11,10 +15,12 @@ from the random init). One flag more: ``--device`` (default ``cuda``; the
 CLI raises when the card is asked for and there is none, and runs on the
 CPU only with ``--device cpu``). The config may be YAML or JSON.
 
-Ported: survival training (``train/loop.train_survival``) with
-``--checkpoint_dir`` / ``--resume``, and ``--export_path`` (the servable of
-``infer/export``). ``--classification``, ``--inference`` (with
-``--bootstrap``), ``--lr_finder`` and ``--segmentation`` raise
+Ported: survival and classification training (``train/loop``) with
+``--checkpoint_dir`` / ``--resume``; ``--inference`` on the test split
+(``infer/run``: C-indices or F1s, ``--bootstrap`` confidence intervals,
+Grad-CAM attention maps unless ``--no_gradcam``, the prediction CSVs) with
+``Hyperparameters.model_weights``; and ``--export_path`` (the servable of
+``infer/export``). ``--lr_finder`` and ``--segmentation`` raise
 ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
@@ -25,11 +31,9 @@ import os
 
 # flag -> (what it runs, its ROADMAP.md Queue 1 item)
 _NOT_PORTED = (
-    ("classification", "classification training", 6),
-    ("inference", "inference (bootstrap C-indices, Grad-CAM)", 6),
-    ("lr_finder", "the LR range test", 7),
+    ("lr_finder", "the LR range test", 6),
     ("segmentation", "segmentation (the JAX package has no loop for it "
-                     "either)", 6),
+                     "either; the cohort builder is)", 9),
 )
 
 
@@ -145,7 +149,7 @@ def main(argv=None) -> int:
         standardize_bundle,
     )
     from .train import checkpoint as ckpt_lib
-    from .train.loop import LoopConfig, train_survival
+    from .train.loop import LoopConfig, train_classification, train_survival
     from .train.schedule import make_optimizer, steps_per_epoch
     from .train.state import create_train_state
     from .utils.logging import get_logger
@@ -180,9 +184,12 @@ def main(argv=None) -> int:
         postop=args.postop,
         radiomics=args.radiomics,
         images=args.images,
+        classification=args.classification,
         survival=args.survival,
         blend=args.blend and args.images and (args.preop or args.postop),
         split=args.split,
+        inference=args.inference,
+        bootstrap=args.bootstrap,
         no_gradcam=args.no_gradcam,
     )
 
@@ -191,8 +198,8 @@ def main(argv=None) -> int:
     logger.info(f"device: {device}")
 
     bundle = load_cohort(cfg, flags)
-    train_uids, val_uids, _test_uids = resolve_splits(cfg, flags, bundle,
-                                                      hp.seed)
+    train_uids, val_uids, test_uids = resolve_splits(cfg, flags, bundle,
+                                                     hp.seed)
     if cfg.clinical_model.standardize:
         standardize_bundle(bundle, train_uids)
         logger.info("standardized tabular predictors with train-split stats")
@@ -214,14 +221,16 @@ def main(argv=None) -> int:
         f"Validation count = {val_ds.num_samples}"
     )
 
-    spe = steps_per_epoch(train_ds.num_samples, SUPER_BATCH_SIZE)
+    step_batch = SUPER_BATCH_SIZE if flags.survival else hp.train_batch_size
+    spe = steps_per_epoch(train_ds.num_samples, step_batch)
     optimizer, schedule = make_optimizer(
         model.parameters(), hp.learning_rate, spe, hp.epochs, hp.momentum,
         hp.weight_decay)
     state = create_train_state(model, optimizer, schedule, seed=hp.seed)
 
-    # weights: the trained ones for an export, pretrained ones otherwise
-    weights_path = (hp.model_weights if args.export_path
+    # weights: the trained ones for inference and an export, pretrained
+    # ones otherwise
+    weights_path = (hp.model_weights if (args.inference or args.export_path)
                     else hp.pretrained_weights) or args.weights
     if weights_path and os.path.exists(weights_path):
         try:
@@ -246,7 +255,8 @@ def main(argv=None) -> int:
         seed=hp.seed,
         output_dir=args.output_path,
         checkpoint_dir=args.checkpoint_dir,
-        save_params_name="best_surv_model.npz",
+        save_params_name=("best_surv_model.npz" if flags.survival
+                          else "model.npz"),
         profile_dir=cfg.tpu.profile_dir,
         ties=hp.cox_ties,
         eval_chunk=cfg.tpu.eval_chunk_size,
@@ -268,10 +278,35 @@ def main(argv=None) -> int:
         logger.info(f"Exported serving artifact to {args.export_path}")
         return 0
 
-    train_survival(state, train_ds, val_ds, loop_cfg)
+    if args.inference:
+        from .infer.run import (
+            InferenceConfig,
+            inference_classification,
+            inference_survival,
+        )
+
+        test_ds = make_split_dataset(cfg, flags, bundle,
+                                     test_uids or val_uids, device)
+        icfg = InferenceConfig(
+            blend=flags.blend,
+            bootstrap=args.bootstrap,
+            gradcam=(not args.no_gradcam) and flags.images,
+            output_dir=args.output_path,
+            seed=hp.seed,
+            eval_chunk=cfg.tpu.eval_chunk_size,
+            ties=hp.cox_ties,
+        )
+        if flags.survival:
+            inference_survival(state, test_ds, icfg)
+        else:
+            inference_classification(state, test_ds, icfg)
+    elif flags.survival:
+        train_survival(state, train_ds, val_ds, loop_cfg)
+    else:
+        train_classification(state, train_ds, val_ds, loop_cfg)
 
     if cfg.data.bucket:
-        # the JAX package's post-training upload, which without boto3 logs
-        # this and goes on
+        # the JAX package's artifact upload, which without boto3 logs this
+        # and goes on
         logger.info("Could not save to s3 bucket - no connection to S3")
     return 0

@@ -2,8 +2,9 @@
 
 A copy of the parts of the JAX package's constants.py that this package
 uses: the column lists behind the config defaults, the cohort-build and
-split constants, the MRI intensity statistics of the transforms and the
-survival super-batch. The YAML config can override the column lists.
+split constants, the MRI intensity statistics of the transforms, the
+survival super-batch, the classification threshold and the bootstrap's
+resample count. The YAML config can override the column lists.
 """
 
 HEADERS_TO_CONVERT = [
@@ -103,6 +104,12 @@ HEADER_PAIRS = [
 IMAGE_DATA_MEAN = 286.90859071507913
 IMAGE_DATA_STDDEV = 581.7816096485366
 
+NUM_CLASSES = 2
+
 SPATIAL_SIZE = (64, 64, 64)
+# a sigmoid probability above this is a positive prediction
+CLASSIFICATION_THRESHOLD = 0.5
+# resamples of the bootstrap C-index confidence intervals
+NUM_BOOTSTRAP_ITERATIONS = 50
 # survival optimizer step: 64 samples as accumulated microbatches
 SUPER_BATCH_SIZE = 64

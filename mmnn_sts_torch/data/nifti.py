@@ -1,5 +1,6 @@
-"""Minimal NIfTI-1 reader/writer in pure numpy and gzip (a copy of the JAX
-package's data/nifti.py:44-136; no nibabel).
+"""Minimal NIfTI-1 reader/writer in pure numpy and gzip, and the per-patient
+attention-map export (a copy of the JAX package's data/nifti.py:44-164; no
+nibabel).
 
 * single-file .nii / .nii.gz, NIfTI-1 (348-byte header, magic 'n+1');
 * both endiannesses; datatypes uint8/int8/int16/uint16/int32/uint32/
@@ -9,13 +10,13 @@ package's data/nifti.py:44-136; no nibabel).
 * the writer emits float32 single-file NIfTI-1 with an identity affine in
   the sform.
 
-The JAX package's C++ decode path and its attention-map export are not
-ported (ROADMAP.md).
+The JAX package's C++ decode path is not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import gzip
+import os
 import struct
 
 import numpy as np
@@ -127,3 +128,23 @@ def save_nifti(path: str, data: np.ndarray, affine: np.ndarray | None = None):
     else:
         with open(path, "wb") as f:
             f.write(payload)
+
+
+def save_attention_maps(out_dir: str, t1: np.ndarray, t2: np.ndarray,
+                        att_map: np.ndarray, preds,
+                        preds_filename: str = "preds.txt", extra_maps=None):
+    """One patient's attention-map directory (nifti.py:138-164):
+    t1image.nii.gz, t2image.nii.gz, att_map.nii.gz (class 0),
+    att_map_cls{c}.nii.gz for each class c of ``extra_maps`` ({c: volume}),
+    and the predictions as text (preds.txt for survival, probabilities.txt
+    for classification), each value's ``str(float)`` written with no
+    separator, as the JAX package writes them."""
+    os.makedirs(out_dir, exist_ok=True)
+    save_nifti(os.path.join(out_dir, "t1image.nii.gz"), t1)
+    save_nifti(os.path.join(out_dir, "t2image.nii.gz"), t2)
+    save_nifti(os.path.join(out_dir, "att_map.nii.gz"), att_map)
+    for cls, vol in (extra_maps or {}).items():
+        save_nifti(os.path.join(out_dir, f"att_map_cls{cls}.nii.gz"), vol)
+    with open(os.path.join(out_dir, preds_filename), "w") as f:
+        for p in np.asarray(preds).reshape(-1):
+            f.write(str(float(p)))

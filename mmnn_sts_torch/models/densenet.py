@@ -11,7 +11,8 @@ the JAX package's models/densenet.py).
   the ``class_layers`` head (Linear(out_channels)).
 
 Train mode is ``module.training``; ``sample_mask`` reaches every BatchNorm
-and the dropouts draw from ``generator``. The stem is a plain strided
+and the dropouts draw from ``generator``. ``capture_gradcam`` also returns
+the Grad-CAM target, the last dense layer's 3x3x3 convolution output. The stem is a plain strided
 convolution with the logical (7, 7, 7) kernel; the JAX package's
 space-to-depth form of it is a TPU layout choice with the same numbers.
 Submodule names follow the JAX package's parameter paths, so ``convert.py``
@@ -87,9 +88,14 @@ class DenseLayer(nn.Module):
         self.conv2 = conv(bn_size * growth_rate, growth_rate, 3, padding=1)
         self.dropout = Dropout(dropout_prob, channels=True)
 
-    def forward(self, x, sample_mask=None, generator=None):
-        y = F.relu(self.norm2(self.fused1(x, sample_mask), sample_mask))
-        y = self.dropout(self.conv2(y), generator)
+    def forward(self, x, sample_mask=None, generator=None, captured=None):
+        """``captured``: a list that receives the 3x3x3 convolution's output
+        (before dropout), the Grad-CAM target of the last layer."""
+        y = self.conv2(F.relu(self.norm2(self.fused1(x, sample_mask),
+                                         sample_mask)))
+        if captured is not None:
+            captured.append(y)
+        y = self.dropout(y, generator)
         return torch.cat([x, y.contiguous(memory_format=CHANNELS_LAST)], dim=1)
 
 
@@ -142,17 +148,21 @@ class DenseNet(nn.Module):
         if out_channels is not None:
             self.out = dense(feature_channels, out_channels)
 
-    def backbone(self, x, sample_mask=None, generator=None):
-        """x: (N, C, D, H, W) channels-last -> final BN'd feature map."""
+    def backbone(self, x, sample_mask=None, generator=None, captured=None):
+        """x: (N, C, D, H, W) channels-last -> final BN'd feature map. The
+        last dense layer appends its Grad-CAM target to ``captured``, where
+        one is given (densenet.py:309-323)."""
+        last = len(self.block_config) - 1
         x = max_pool(F.relu(self.norm0(self.conv0(x), sample_mask)), 3, 2, 1)
         for i, num_layers in enumerate(self.block_config):
             # pooling may hand back another memory format; the dense block's
             # bottlenecks need channels-last, so restore it once per block
             x = x.contiguous(memory_format=CHANNELS_LAST)
             for j in range(num_layers):
+                target = i == last and j == num_layers - 1
                 x = getattr(self, f"block{i + 1}_layer{j + 1}")(
-                    x, sample_mask, generator)
-            if i == len(self.block_config) - 1:
+                    x, sample_mask, generator, captured if target else None)
+            if i == last:
                 x = self.norm5(x, sample_mask)
             else:
                 x = getattr(self, f"transition{i + 1}")(x, sample_mask)
@@ -166,12 +176,18 @@ class DenseNet(nn.Module):
         return self.out(x)
 
     def forward(self, x, return_features: bool = False, sample_mask=None,
-                generator=None):
-        """x: (N, D, H, W, C), the JAX package's layout."""
+                generator=None, capture_gradcam: bool = False):
+        """x: (N, D, H, W, C), the JAX package's layout. With
+        ``capture_gradcam``, returns ``(out, act)``: ``act`` is the last
+        dense layer's 3x3x3 convolution output, (N, growth, d, h, w), a
+        tensor of the graph that the gradients of ``out`` reach."""
+        captured = [] if capture_gradcam else None
         feats = self.features(
-            self.backbone(x.permute(0, 4, 1, 2, 3), sample_mask, generator),
+            self.backbone(x.permute(0, 4, 1, 2, 3), sample_mask, generator,
+                          captured),
             generator)
-        return feats if return_features else self.class_layers(feats)
+        out = feats if return_features else self.class_layers(feats)
+        return (out, captured[0]) if capture_gradcam else out
 
 
 def bottleneck_shapes(model: DenseNet, batch: int, size: int = 64):

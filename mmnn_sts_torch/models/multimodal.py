@@ -34,11 +34,16 @@ class MultiModalModel(nn.Module):
             self.image_output_head = dense(num_features, num_classes)
             self.clinical_output_head = dense(num_features, num_classes)
 
-    def forward(self, inputs: dict, sample_mask=None, generator=None):
-        """inputs: {"image": (N, D, H, W, C), "clinical": (N, P)}."""
+    def forward(self, inputs: dict, sample_mask=None, generator=None,
+                capture_gradcam: bool = False):
+        """inputs: {"image": (N, D, H, W, C), "clinical": (N, P)}. With
+        ``capture_gradcam``, returns ``(out, act)``, ``act`` the image
+        encoder's Grad-CAM target (multimodal.py:51-90)."""
         image_features = self.image_model(
             inputs["image"], return_features=True, sample_mask=sample_mask,
-            generator=generator)
+            generator=generator, capture_gradcam=capture_gradcam)
+        if capture_gradcam:
+            image_features, act = image_features
         clinical_features = self.clinical_model(
             inputs["clinical"], return_features=True, sample_mask=sample_mask,
             generator=generator)
@@ -50,4 +55,4 @@ class MultiModalModel(nn.Module):
                 self.image_output_head(image_features),
                 self.clinical_output_head(clinical_features),
             ])
-        return out
+        return (out, act) if capture_gradcam else out

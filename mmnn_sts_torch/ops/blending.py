@@ -1,9 +1,10 @@
-"""Gradient blending for the survival heads (counterpart of the survival half
-of the JAX package's ops/blending.py; Wang et al., arXiv:1905.12681).
+"""Gradient blending (counterpart of the JAX package's ops/blending.py;
+Wang et al., arXiv:1905.12681).
 
 K = 3 heads, head 0 the multimodal one. The loss is the blend weights
-(held constant under autograd) times each head's summed multi-target Cox
-loss; the weights start uniform and are updated once per epoch from the
+(held constant under autograd) times each head's summed loss: the
+multi-target Cox loss for survival, BCE-with-logits for classification.
+The weights start uniform and are updated once per epoch from the
 per-head train and validation losses (blending.py:119-154). The survival
 update uses dG = Lv_N - Lv, the classification update dG = Lv - Lv_N:
 ``blend_update`` keeps both conventions, as the JAX package does.
@@ -16,6 +17,7 @@ from dataclasses import dataclass
 import torch
 
 from .cox import column_losses
+from .losses import bce_with_logits
 
 
 @dataclass
@@ -53,6 +55,28 @@ def blended_surv_loss(state: BlendState, preds, events, durations,
     best model (blending.py:73-84)."""
     head_losses = surv_head_losses(preds, events, durations, ties, mask)
     return (state.weights.detach() * head_losses).sum(), head_losses[0]
+
+
+def class_head_losses(preds, targets, pos_weight=None, mask=None):
+    """(K,) summed BCE-with-logits loss of each head; preds (K, N, C)."""
+    per_element = bce_with_logits(preds, targets, pos_weight,
+                                  reduction="none")
+    if mask is not None:
+        per_element = per_element * mask.float()[None, :, None]
+    return per_element.sum((1, 2))
+
+
+def blended_class_loss(state: BlendState, preds, targets, pos_weight=None,
+                       mask=None):
+    """``(sum(weights * head_losses), head_losses[0])`` of the
+    classification heads (blending.py:96-107)."""
+    head_losses = class_head_losses(preds, targets, pos_weight, mask)
+    return (state.weights.detach() * head_losses).sum(), head_losses[0]
+
+
+def class_elementwise_losses(preds, targets, pos_weight=None):
+    """(K, N, C) unreduced BCE losses of each head (blending.py:110-116)."""
+    return bce_with_logits(preds, targets, pos_weight, reduction="none")
 
 
 def blend_update(state: BlendState, train_loss, val_loss,

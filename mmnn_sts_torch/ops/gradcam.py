@@ -1,0 +1,69 @@
+"""Grad-CAM 3D attention maps (counterpart of the JAX package's
+ops/gradcam.py:29-90).
+
+* the target is the last convolution of the image encoder: the model's
+  ``capture_gradcam`` path returns it as ``act``, a tensor of the forward's
+  graph, so ``torch.autograd.grad(logit, act)`` is what the JAX package's
+  zero probe gives;
+* per class c: the gradient of the logit [0, c] (blend: [0, 0, c], the
+  multimodal head) with respect to ``act``, pooled per channel over batch
+  and space; a fresh copy of ``act`` weighted by it (the reference scales
+  its activation buffer in place, which leaks class 0's weights into
+  class 1's map; the JAX package implements the evident intent, and so
+  does this); the mean over channels; the minimum shifted to 0 and the
+  result divided by max(max, 1e-12); a trilinear resize to the input's
+  spatial shape;
+* batch size 1 only.
+
+The forward is one eval-mode call with autograd on, so every DenseNet
+bottleneck runs through the fused op as in any other forward; each class
+pulls one gradient through the layers after ``act`` only.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch.nn import functional as F
+
+
+def resize_trilinear(volume, size):
+    """(d, h, w) -> ``size`` by trilinear interpolation with half-pixel
+    centres (``jax.image.resize(method="trilinear")`` when upsampling)."""
+    return F.interpolate(volume[None, None], size=tuple(size),
+                         mode="trilinear", align_corners=False)[0, 0]
+
+
+def attention_maps(model, inputs, num_classes: int, blend: bool = False):
+    """Per-class attention maps of a batch-1 input.
+
+    Args:
+      model: an eval-mode model with a ``capture_gradcam`` path.
+      inputs: what the model takes, batch size 1 (a dict with ``"image"``
+        (1, D, H, W, C), or the image tensor itself), already transformed.
+      num_classes: C.
+      blend: whether the output is the (K, N, C) head stack.
+
+    Returns (C, D, H, W) maps on the input's device.
+    """
+    image = inputs["image"] if isinstance(inputs, dict) else inputs
+    if image.shape[0] != 1:
+        raise AssertionError(
+            "Batch dimension found in attention map - Must use batch size 1 "
+            "when computing attention maps"
+        )
+    spatial = image.shape[1:-1]
+    with torch.enable_grad():
+        out, act = model(inputs, capture_gradcam=True)
+        maps = []
+        for cls in range(num_classes):
+            logit = out[0, 0, cls] if blend else out[0, cls]
+            (grads,) = torch.autograd.grad(
+                logit, act, retain_graph=cls < num_classes - 1)
+            with torch.no_grad():
+                # act: (1, channels, d, h, w)
+                pooled = grads.mean(dim=(0, 2, 3, 4))
+                heatmap = (act * pooled.view(1, -1, 1, 1, 1)).mean(1)[0]
+                heatmap = heatmap - heatmap.min()
+                heatmap = heatmap / torch.clamp(heatmap.max(), min=1e-12)
+                maps.append(resize_trilinear(heatmap, spatial))
+    return torch.stack(maps)

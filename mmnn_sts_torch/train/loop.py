@@ -1,8 +1,10 @@
-"""The survival training loop (counterpart of the JAX package's
-train/loop.py:54-402, its per-superstep path).
+"""The training loops (counterpart of the JAX package's train/loop.py, its
+per-step paths): ``train_survival`` (loop.py:54-402) and
+``train_classification`` (loop.py:405-656).
 
-Per epoch: the shuffled, wrap-padded superstep indices (``EpochBatcher``),
-one ``survival_train_superstep`` per super-batch gathered on the device
+Survival, per epoch: the shuffled, wrap-padded superstep indices
+(``EpochBatcher``), one ``survival_train_superstep`` per super-batch
+gathered on the device
 (the ragged last one with its pad mask), one read-back of the epoch's
 losses and predictions; the train C-index over the first N rows of the
 prediction stream (the shuffled order; the wrap pad is left out);
@@ -13,6 +15,15 @@ head's unweighted loss, with the best weights written in the background
 order, with their events and durations in the same order) and the
 epoch's validation predictions; then the loss and C-index curves and the
 blend history.
+
+Classification, per epoch: one ``classification_train_step`` per shuffled
+batch of ``batch_size`` (the ragged last one masked), BCE-with-logits with
+``pos_weight`` from the train split's label frequencies, one read-back;
+the train F1 over the first N rows of the logit stream; validation loss,
+F1s and the ``LossTracker``; best-model selection on the mean validation
+F1 (strictly greater; a NaN never wins); the blend update on the raw
+logits (the classification sign convention); then the loss and F1 curves,
+the tracker's plots, the blend history and ``final_<name>``.
 
 With a ``checkpoint_dir`` every epoch is checkpointed (the full state, see
 ``train/checkpoint.py``), and a state restored from one resumes at its
@@ -41,16 +52,19 @@ from ..constants import SUPER_BATCH_SIZE
 from ..data.loader import DeviceDataset, EpochBatcher, gather_superbatch
 from ..exceptions import ConfigurationError
 from ..ops import blending
-from ..ops.metrics import c_indices_per_class
+from ..ops.losses import pos_weight_from_frequencies
+from ..ops.metrics import c_indices_per_class, thresholded_f1s
 from ..utils.logging import MetricsWriter, get_logger
 from ..utils.plotting import (
+    LossTracker,
     save_blend_history,
     save_c_score_curves,
+    save_f1_curves,
     save_loss_curves,
 )
 from . import checkpoint as ckpt_lib
-from .evaluate import survival_eval_split
-from .steps import survival_train_superstep
+from .evaluate import classification_eval_split, survival_eval_split
+from .steps import classification_train_step, survival_train_superstep
 
 logger = get_logger()
 
@@ -108,17 +122,25 @@ def _c_indices(preds, events, durations):
         return [float("nan")] * preds.shape[1]
 
 
+def _refuse_fused_epoch(cfg: LoopConfig):
+    if cfg.fused_epoch:
+        raise ConfigurationError(
+            "TPU.fused_epoch (the whole epoch as one program) is not ported "
+            "to mmnn_sts_torch yet (ROADMAP.md: a CUDA graph of the "
+            "superstep); set it to false")
+
+
+def _on_device(a, device):
+    return torch.as_tensor(np.asarray(a)).to(device)
+
+
 def train_survival(
     state,
     train_ds: DeviceDataset,
     val_ds: DeviceDataset,
     cfg: LoopConfig,
 ) -> TrainResult:
-    if cfg.fused_epoch:
-        raise ConfigurationError(
-            "TPU.fused_epoch (the whole epoch as one program) is not ported "
-            "to mmnn_sts_torch yet (ROADMAP.md: a CUDA graph of the "
-            "superstep); set it to false")
+    _refuse_fused_epoch(cfg)
     accum = max(1, cfg.super_batch // cfg.batch_size)
     batcher = EpochBatcher(
         train_ds.num_samples, cfg.batch_size, accum, seed=cfg.seed,
@@ -251,16 +273,13 @@ def train_survival(
 
         if cfg.blend and (epoch + 1) % cfg.blend_update_interval == 0:
             logger.info("Updating gradient blender weights")
-
-            def on_device(a):
-                return torch.as_tensor(np.asarray(a)).to(device)
-
             tr_head = blending.surv_head_losses(
-                on_device(train_preds), on_device(train_events),
-                on_device(train_durations), ties=cfg.ties)
+                _on_device(train_preds, device),
+                _on_device(train_events, device),
+                _on_device(train_durations, device), ties=cfg.ties)
             va_head = blending.surv_head_losses(
-                on_device(val_preds), on_device(val_events),
-                on_device(val_durations), ties=cfg.ties)
+                _on_device(val_preds, device), _on_device(val_events, device),
+                _on_device(val_durations, device), ties=cfg.ties)
             state.blend = blending.blend_update(state.blend, tr_head, va_head,
                                                 True)
             blend_history.append(state.blend.weights.cpu().tolist())
@@ -289,5 +308,166 @@ def train_survival(
             "train_c": train_cs,
             "val_c": val_cs,
             "best_c_indices": best_c_indices,
+        },
+    )
+
+
+def train_classification(
+    state,
+    train_ds: DeviceDataset,
+    val_ds: DeviceDataset,
+    cfg: LoopConfig,
+) -> TrainResult:
+    _refuse_fused_epoch(cfg)
+    device = train_ds.device
+    host_labels = train_ds.labels.cpu().numpy()
+    val_labels = val_ds.labels.cpu().numpy()
+    pos_weight = pos_weight_from_frequencies(host_labels.mean(axis=0)).to(
+        device)
+    batcher = EpochBatcher(train_ds.num_samples, cfg.batch_size, 1,
+                           seed=cfg.seed)
+    metrics = MetricsWriter(os.path.join(cfg.output_dir, cfg.metrics_path))
+    manager = (
+        ckpt_lib.CheckpointManager(cfg.checkpoint_dir) if cfg.checkpoint_dir else None
+    )
+    npz_saver = ckpt_lib.AsyncNpzSaver(cfg.npz_layout)
+
+    best_metric, best_epoch, best_f1s = -1.0, -1, None
+    history = {"train_loss": [], "val_loss": [], "train_f1": [], "val_f1": [],
+               "blend": [state.blend.weights.cpu().tolist()],
+               "tracker": LossTracker().curves()}
+    first_epoch = int(state.epoch)
+    if manager is not None and first_epoch:
+        done = manager.metrics(manager.latest_step())
+        best_metric = done.get("best_metric", best_metric)
+        best_epoch = done.get("best_epoch", best_epoch)
+        best_f1s = done.get("best_f1s")
+        history = done.get("history", history)
+    train_losses, val_losses = history["train_loss"], history["val_loss"]
+    train_f1s, val_f1s = history["train_f1"], history["val_f1"]
+    blend_history = history["blend"]
+    tracker = LossTracker(history["tracker"])
+    n_unique = train_ds.num_samples
+
+    tail_mask = (
+        torch.as_tensor(batcher.pad_mask()[-1]).to(device)
+        if batcher.ragged else None
+    )
+    steps_total = batcher.steps_per_epoch()
+
+    for epoch in range(first_epoch, cfg.epochs):
+        logger.info("-" * 10)
+        logger.info(f"epoch {epoch + 1}/{cfg.epochs}")
+        epoch_t0 = time.perf_counter()
+        order = batcher.epoch_indices(epoch)  # (steps, batch)
+        step_losses, step_logits = [], []
+        for s, idx in enumerate(order):
+            batch = gather_superbatch(train_ds, idx)
+            aux = classification_train_step(
+                state, batch["inputs"], batch["labels"], pos_weight,
+                blend=cfg.blend, augment=cfg.augment,
+                mask=tail_mask if s == steps_total - 1 else None,
+            )
+            step_losses.append(aux["loss"])
+            step_logits.append(aux["preds"])
+        # one read-back per epoch
+        epoch_loss = torch.stack(step_losses).sum().item()
+        logits_host = torch.stack(step_logits).cpu().numpy()
+
+        flat_order = order.reshape(-1)
+        if cfg.blend:  # (S, K, B, C) -> (K, S * B, C)
+            s, k, b, c = logits_host.shape
+            tr_logits = logits_host.transpose(1, 0, 2, 3).reshape(k, s * b, c)
+        else:
+            s, b, c = logits_host.shape
+            tr_logits = logits_host.reshape(s * b, c)
+        tr_logits = _dedup_epoch(tr_logits, n_unique, cfg.blend)
+        tr_labels = host_labels[flat_order[:n_unique]]
+        *_, f1s = thresholded_f1s(tr_logits[0] if cfg.blend else tr_logits,
+                                  tr_labels)
+        train_f1s.append(float(np.nanmean(f1s)))
+        epoch_dt = time.perf_counter() - epoch_t0
+        epoch_loss = epoch_loss / train_ds.num_samples
+        train_losses.append(epoch_loss)
+        logger.info(
+            f"epoch {epoch + 1} average loss: {epoch_loss:.4f} "
+            f"({train_ds.num_samples / max(epoch_dt, 1e-9):.1f} samples/s)"
+        )
+
+        out = classification_eval_split(state, val_ds, pos_weight,
+                                        blend=cfg.blend, chunk=cfg.eval_chunk)
+        val_logits = out["preds"]
+        _, pred_lbl, f1s = thresholded_f1s(
+            val_logits[0] if cfg.blend else val_logits, val_labels)
+        tracker.update(pred_lbl, val_labels, out["elementwise"])
+        val_loss = float(out["elementwise"].sum()) / val_ds.num_samples
+        val_losses.append(val_loss)
+        logger.info(f"Validation loss: {val_loss}")
+        mean_f1 = float(np.nanmean(f1s))
+        val_f1s.append(mean_f1)
+        if mean_f1 > best_metric:
+            best_metric, best_f1s, best_epoch = mean_f1, f1s, epoch + 1
+            if cfg.save_params_name:
+                npz_saver.submit(
+                    os.path.join(cfg.output_dir, cfg.save_params_name),
+                    state.model)
+            logger.info("saved new best metric model")
+        logger.info(
+            f"current epoch: {epoch + 1} current f1: {mean_f1:.4f}"
+            f" best f1: {best_metric:.4f} at epoch: {best_epoch}"
+        )
+        metrics.write(
+            kind="classification_epoch",
+            epoch=epoch + 1,
+            train_loss=epoch_loss,
+            val_loss=val_loss,
+            train_f1=train_f1s[-1],
+            val_f1=mean_f1,
+            epoch_seconds=epoch_dt,
+            samples_per_sec=train_ds.num_samples / max(epoch_dt, 1e-9),
+        )
+
+        if cfg.blend and (epoch + 1) % cfg.blend_update_interval == 0:
+            # raw logits for both, as the JAX loop (the reference feeds
+            # probabilities and 0/1 predictions through BCE-with-logits)
+            logger.info("Updating gradient blender weights")
+            tr_head = blending.class_head_losses(
+                _on_device(tr_logits, device), _on_device(tr_labels, device),
+                pos_weight)
+            va_head = blending.class_head_losses(
+                _on_device(val_logits, device), val_ds.labels, pos_weight)
+            state.blend = blending.blend_update(state.blend, tr_head, va_head,
+                                                False)
+            blend_history.append(state.blend.weights.cpu().tolist())
+            logger.info(f"new weights : {blend_history[-1]}")
+
+        state.epoch += 1
+        if manager is not None:
+            manager.save(epoch + 1, state, {
+                "selection_metric": mean_f1 if np.isfinite(mean_f1) else -1.0,
+                "best_metric": best_metric, "best_epoch": best_epoch,
+                "best_f1s": best_f1s, "history": history})
+
+    tracker.save_plots(cfg.output_dir)
+    if cfg.blend:
+        save_blend_history(blend_history, cfg.output_dir)
+    save_loss_curves(train_losses, val_losses, cfg.output_dir)
+    save_f1_curves(train_f1s, val_f1s, cfg.output_dir)
+    if cfg.save_params_name:
+        ckpt_lib.save_params_npz(
+            os.path.join(cfg.output_dir, "final_" + cfg.save_params_name),
+            state.model, cfg.npz_layout)
+    npz_saver.close()
+    metrics.close()
+    return TrainResult(
+        state=state,
+        best_metric=best_metric,
+        best_epoch=best_epoch,
+        history={
+            "train_loss": train_losses,
+            "val_loss": val_losses,
+            "train_f1": train_f1s,
+            "val_f1": val_f1s,
+            "best_f1s": best_f1s,
         },
     )

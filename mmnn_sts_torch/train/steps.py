@@ -1,5 +1,4 @@
-"""Survival train and eval steps (counterpart of the survival half of the
-JAX package's train/steps.py).
+"""Train and eval steps (counterpart of the JAX package's train/steps.py).
 
 ``survival_train_superstep`` is one optimizer update over A microbatches of
 B samples, as the JAX package's superstep (steps.py:127-321) and the
@@ -12,6 +11,10 @@ parameter's ``.grad`` until the next superstep.
 The JAX package's ``group`` runs microbatches side by side as one program;
 it is the same update up to float reassociation (steps.py:154-171), so it
 is accepted here and changes nothing.
+
+``classification_train_step`` is one optimizer step per batch, with no
+accumulation (steps.py:449-508); ``classification_eval_step`` the
+validation forward with its unreduced losses (steps.py:511-521, 594-604).
 """
 
 from __future__ import annotations
@@ -19,8 +22,9 @@ from __future__ import annotations
 import torch
 
 from ..ops.augment import eval_transform_batch, train_augment_batch
-from ..ops.blending import blended_surv_loss
+from ..ops.blending import blended_class_loss, blended_surv_loss
 from ..ops.cox import multi_cox_loss
+from ..ops.losses import bce_with_logits
 from .state import TrainState
 
 
@@ -97,13 +101,17 @@ def survival_train_superstep(
         loss.backward()
         loss_sum += loss.detach()
         outs.append(out.detach())
+    _apply_gradients(state)
+    return {"loss": loss_sum, "preds": torch.stack(outs)}
+
+
+def _apply_gradients(state: TrainState):
     # optax decays and carries momentum for every parameter; torch's SGD
     # skips a parameter whose .grad is None, so give unused ones zeros
-    for p in model.parameters():
+    for p in state.model.parameters():
         if p.requires_grad and p.grad is None:
             p.grad = torch.zeros_like(p)
     state.apply_gradients()
-    return {"loss": loss_sum, "preds": torch.stack(outs)}
 
 
 @torch.no_grad()
@@ -116,3 +124,51 @@ def survival_eval_step(state: TrainState, inputs, events, durations,
     loss, selection = _survival_loss(state, out, events, durations, blend,
                                      ties)
     return {"loss": loss, "selection_loss": selection, "preds": out}
+
+
+def _classification_loss(state, out, labels, pos_weight, blend, mask=None):
+    if blend:
+        return blended_class_loss(state.blend, out, labels, pos_weight,
+                                  mask)[0]
+    return bce_with_logits(out, labels, pos_weight, reduction="sum",
+                           mask=mask)
+
+
+def classification_train_step(
+    state: TrainState,
+    inputs,  # tensor or dict of tensors, leaves (B, ...)
+    labels: torch.Tensor,  # (B, C)
+    pos_weight,
+    blend: bool = False,
+    augment: bool = True,
+    mask: torch.Tensor | None = None,
+):
+    """One optimizer step on one batch; updates ``state`` in place and
+    returns ``{"loss": summed loss, "preds": ([K,] B, C)}``. ``mask`` (B,)
+    marks the valid samples of a wrap-padded ragged batch (left out of the
+    loss, the gradients and the BatchNorm statistics); ``state.generator``
+    feeds the augmentation and dropout."""
+    generator = state.generator
+    model = state.model.train()
+    state.optimizer.zero_grad(set_to_none=True)
+    out = model(_transform_inputs(inputs, generator if augment else None),
+                sample_mask=mask, generator=generator)
+    loss = _classification_loss(state, out, labels, pos_weight, blend, mask)
+    loss.backward()
+    _apply_gradients(state)
+    return {"loss": loss.detach(), "preds": out.detach()}
+
+
+@torch.no_grad()
+def classification_eval_step(state: TrainState, inputs, labels, pos_weight,
+                             blend: bool = False):
+    """Validation forward on leaves (B, ...): eval mode after the eval
+    transform. Returns ``{"loss", "preds", "elementwise"}``, the last the
+    (B, C) unreduced BCE of the multimodal head, which the ``LossTracker``
+    reads."""
+    out = state.model.eval()(_transform_inputs(inputs))
+    head = out[0] if blend else out
+    elementwise = bce_with_logits(head, labels, pos_weight, reduction="none")
+    loss = (_classification_loss(state, out, labels, pos_weight, blend)
+            if blend else elementwise.sum())
+    return {"loss": loss, "preds": out, "elementwise": elementwise}
