@@ -70,7 +70,18 @@ Phases; any failure is an uncaught exception and a nonzero exit:
    warm-up and 6 timed supersteps (volumes/s, peak memory) and one
    profiled superstep: the augmentation's device ms and launches (its
    calls run inside a profiler range) and the busy share.
-7. CLI: the survival run as a user starts it, at full width. A synthetic
+7. Train in bfloat16: the same flagship model with TPU.compute_dtype
+   bfloat16 (float32 parameters, compute in bfloat16 at the JAX package's
+   cast points), the augmented superstep 8 x 8 at 64^3 with dropout 0.2.
+   One superstep from the same state and draws with the kernel, one with
+   the plain op and one with the plain op's product summed in two halves
+   of K (the control): the kernel must launch 464 times, every call with
+   bfloat16 x and w, and the update (new - old over all parameters) with
+   the kernel must lie within BF16_CONTROL_FACTOR x the control's relative
+   L2 distance of the plain op's. Then a warm-up and 6 timed supersteps
+   (volumes/s, peak memory) and one profiled superstep (busy share,
+   kernel time by kind).
+8. CLI: the survival run as a user starts it, at full width. A synthetic
    cohort written without pandas (the csv module and the port's
    save_nifti): CLI_PATIENTS patients, T1 and T2 NIfTI volumes of
    CLI_VOLUME voxels (squared normals x 500, a mask inside), a clinical CSV
@@ -88,7 +99,7 @@ Phases; any failure is an uncaught exception and a nonzero exit:
    weights, and ServingModel on the card answers a batch-3 request with a
    finite (3, 2). Prints the cohort build's seconds, each epoch's seconds
    and samples/s, the best save's host stall and the artifacts written.
-8. Inference and classification, on the CLI phase's cohort and best
+9. Inference and classification, on the CLI phase's cohort and best
    weights, through mmnn_sts_torch.cli.main at full width: --inference
    --survival --blend with Grad-CAM on the 15 test patients (rc 0, a
    finite survival_model_predictions.csv row a patient, one
@@ -107,7 +118,16 @@ Phases; any failure is an uncaught exception and a nonzero exit:
    58 x (eval steps + patients)). Prints each run's seconds, the Grad-CAM
    export's seconds a patient and attention_maps' CUDA-event ms, the
    classification epochs' seconds and samples/s.
-9. Prints the kernels' JSON line, the card's line, and last
+10. The CLI in bfloat16, on the CLI phase's cohort: a JSON config with
+   TPU.compute_dtype bfloat16, 2 epochs (rc 0, finite losses, launches =
+   supersteps x 464 + validation forwards x 58, every kernel call with
+   bfloat16 x and w, the best .npz loading strictly), the export as a
+   subprocess served on the card (the spec records bfloat16; a batch-3
+   request answers a finite float32 (3, 2) in 58 bfloat16 launches), then
+   --inference --survival with Grad-CAM on its test patients (att maps in
+   [0, 1] with a max above 0.5, launches = 58 x (eval steps + 2 x
+   patients)).
+11. Prints the kernels' JSON line, the card's line, and last
    {"ok": true, "device": {...}}.
 
 Per-shape kernel results go to chiprun_out/chip_smoke_kernels.jsonl, the
@@ -165,6 +185,10 @@ VAL_SIZE = 16  # volumes of the synthetic validation split
 # (TF32 off) and elementwise passes in another order; the sharpening
 # multiplies a difference of two blurs by up to 30
 AUGMENT_TOLERANCE = 1e-4
+# the bfloat16 superstep's update with the kernel vs the plain op, relative
+# L2: at most this many times the control's (the plain op with its product
+# summed in another order), as the CPU tests hold the port against JAX
+BF16_CONTROL_FACTOR = 4.0
 # the CLI phase's synthetic cohort: about 67 train patients (2 supersteps
 # an epoch, the second ragged), each volume MRI-like in size
 CLI_PATIENTS, CLI_VOLUME, CLI_EPOCHS = 96, (80, 72, 48), 3
@@ -705,14 +729,17 @@ def synthetic_split(rng, lead: tuple, spec: dict, device):
 
 
 def reassociated_reference(x, a, b, w):
-    """The plain version with its product summed as two halves of K: the
-    same function, its sums in another order (a control for how far
-    roundoff alone moves a superstep)."""
+    """The plain version with its product summed as two halves of K, in
+    float32, rounded once to x's dtype: the same function, its sums in
+    another order (a control for how far roundoff alone moves a
+    superstep)."""
     from mmnn_sts_torch.ops.fused_dense import fused_bn_relu_matmul_reference
 
     k = x.shape[1] // 2
-    return (fused_bn_relu_matmul_reference(x[:, :k], a[:k], b[:k], w[:k])
-            + fused_bn_relu_matmul_reference(x[:, k:], a[k:], b[k:], w[k:]))
+    return (fused_bn_relu_matmul_reference(x[:, :k].float(), a[:k], b[:k],
+                                           w[:k])
+            + fused_bn_relu_matmul_reference(x[:, k:].float(), a[k:], b[k:],
+                                             w[k:])).to(x.dtype)
 
 
 def train_phase(fd, seed: int):
@@ -1107,7 +1134,7 @@ def counted(fn, counts: dict, name: str):
 
 def cli_phase(fd, seed: int, workdir: Path) -> dict:
     """The survival run through the port's CLI at full width (see the
-    module docstring, phase 7). Returns its kernel launches and counts."""
+    module docstring, phase 8). Returns its kernel launches and counts."""
     from mmnn_sts_torch import cli, pipeline
     from mmnn_sts_torch.config import parse_config
     from mmnn_sts_torch.infer.export import ServingModel
@@ -1337,11 +1364,31 @@ def read_csv_rows(path: Path) -> tuple[str, np.ndarray]:
                                for line in lines[1:]])
 
 
+def run_cli(fd, args, where: Path, patches) -> tuple[int, float, int]:
+    """``cli.main(args)`` on CLI_DEVICE in ``where`` with ``patches``
+    started (in order): (rc, seconds, the kernel's launches)."""
+    from mmnn_sts_torch import cli
+
+    cwd = Path.cwd()
+    os.chdir(where)
+    try:
+        for p in patches:
+            p.start()
+        fd.fused_bn_relu_matmul.launches = 0
+        t0 = time.perf_counter()
+        rc = cli.main(args + ["--device", CLI_DEVICE])
+        torch.cuda.synchronize()
+        return rc, time.perf_counter() - t0, fd.fused_bn_relu_matmul.launches
+    finally:
+        for p in reversed(patches):
+            p.stop()
+        os.chdir(cwd)
+
+
 def infer_phase(fd, seed: int, workdir: Path) -> dict:
     """Inference and classification through the port's CLI at full width,
     on the CLI phase's cohort and best weights (see the module docstring,
-    phase 8). Returns the kernel launches of its runs."""
-    from mmnn_sts_torch import cli
+    phase 9). Returns the kernel launches of its runs."""
     from mmnn_sts_torch.config import parse_config
     from mmnn_sts_torch.data.nifti import load_nifti
     from mmnn_sts_torch.infer import run as infer_run
@@ -1359,22 +1406,7 @@ def infer_phase(fd, seed: int, workdir: Path) -> dict:
     per_forward = sum(build_model(parse_config(str(infer_config)), True, True,
                                   False, True).image_model.block_config)
 
-    def run(args, where: Path, patches):
-        cwd = Path.cwd()
-        os.chdir(where)
-        try:
-            for p in patches:
-                p.start()
-            fd.fused_bn_relu_matmul.launches = 0
-            t0 = time.perf_counter()
-            rc = cli.main(args + ["--device", CLI_DEVICE])
-            torch.cuda.synchronize()
-            return rc, time.perf_counter() - t0, \
-                fd.fused_bn_relu_matmul.launches
-        finally:
-            for p in patches:
-                p.stop()
-            os.chdir(cwd)
+    run = functools.partial(run_cli, fd)
 
     # 1. survival inference with the attention maps
     counts, maps_calls, survival_calls = {}, [], []
@@ -1592,6 +1624,280 @@ def infer_phase(fd, seed: int, workdir: Path) -> dict:
             "per_classification_epoch": class_launches // epochs}
 
 
+def kernel_dtypes(fd, seen: set):
+    """A patch of the kernel's wrapper that adds each call's (x dtype, w
+    dtype) to ``seen``. While it is active, read the launches from
+    ``fd.fused_bn_relu_matmul.launches`` (the wrapper counts on the name it
+    finds in its module)."""
+    orig = fd.fused_bn_relu_matmul
+
+    @functools.wraps(orig)
+    def call(x, a, b, w):
+        seen.add((x.dtype, w.dtype))
+        return orig(x, a, b, w)
+
+    return mock.patch.object(fd, "fused_bn_relu_matmul", call)
+
+
+def check_bf16_calls(seen: set, where: str):
+    if seen != {(torch.bfloat16, torch.bfloat16)}:
+        raise AssertionError(f"{where}: the kernel's calls had x and w of "
+                             f"{sorted(map(str, seen))}, not bfloat16 only")
+
+
+def flat_update(params, before) -> torch.Tensor:
+    return torch.cat([(p.detach() - b).flatten().float()
+                      for p, b in zip(params, before)])
+
+
+def bf16_train_phase(fd, seed: int) -> dict:
+    """The flagship superstep with TPU.compute_dtype bfloat16 (see the module
+    docstring, phase 7). Returns its launches and device times."""
+    from mmnn_sts_torch.config import Config
+    from mmnn_sts_torch.convert import load_jax_npz, to_jax_flat
+    from mmnn_sts_torch.infer.export import model_spec
+    from mmnn_sts_torch.models import build_model
+    from mmnn_sts_torch.train.schedule import make_optimizer
+    from mmnn_sts_torch.train.state import create_train_state
+    from mmnn_sts_torch.train.steps import survival_train_superstep
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = Config()
+    cfg.image_model.name = CLI_MODEL
+    cfg.image_model.spatial_size = [CLI_SIDE] * 3
+    cfg.tpu.compute_dtype = "bfloat16"
+    flags = dict(images=True, preop=True, postop=False, blend=True)
+    spec = model_spec(cfg, **flags)
+    model = build_model(cfg, **flags)
+    per_forward = sum(model.image_model.block_config)  # 58 in DenseNet121
+    weights = random_flat_weights(model, seed, to_jax_flat)
+    rng = np.random.default_rng(seed + 3)
+    inputs, events, durations = synthetic_split(
+        rng, (TRAIN_MICRO, TRAIN_BATCH), spec, CLI_DEVICE)
+    volumes = TRAIN_MICRO * TRAIN_BATCH
+
+    def new_state(total_steps: int):
+        model = build_model(cfg, **flags)
+        load_jax_npz(model, weights)
+        model.to(CLI_DEVICE)
+        return create_train_state(model, *make_optimizer(
+            model.parameters(), TRAIN_LR, total_steps, 1), seed=seed)
+
+    def superstep(state):
+        aux = survival_train_superstep(state, inputs, events, durations,
+                                       blend=True, augment=True)
+        if not torch.isfinite(aux["loss"]):
+            raise AssertionError("a bfloat16 superstep's loss is not finite")
+        return aux
+
+    def update_with(patch):
+        """One augmented superstep from the initial state (the same draws
+        every time) under ``patch``: (its output, its update, the kernel's
+        launches)."""
+        state = new_state(4)
+        params = list(state.model.parameters())
+        before = [p.detach().clone() for p in params]
+        with patch:
+            aux = superstep(state)
+            torch.cuda.synchronize()
+            launched = getattr(fd.fused_bn_relu_matmul, "launches", None)
+        update = flat_update(params, before)
+        if not torch.isfinite(update).all():
+            raise AssertionError("a bfloat16 superstep's update is not finite")
+        return aux, update, launched
+
+    def rel(got, want):
+        return ((got.float() - want.float()).norm()
+                / want.float().norm()).item()
+
+    seen = set()
+    fd.fused_bn_relu_matmul.launches = 0
+    got_aux, got, launched = update_with(kernel_dtypes(fd, seen))
+    check_bf16_calls(seen, "bf16 superstep")
+    if launched != per_forward * TRAIN_MICRO:
+        raise AssertionError(f"a bfloat16 superstep launched the kernel "
+                             f"{launched} times, not "
+                             f"{per_forward * TRAIN_MICRO}")
+    want_aux, want, _ = update_with(mock.patch.object(
+        fd, "fused_bn_relu_matmul", fd.fused_bn_relu_matmul_reference))
+    ctrl_aux, control, _ = update_with(mock.patch.object(
+        fd, "fused_bn_relu_matmul", reassociated_reference))
+    dists = {"update": (rel(got, want), rel(control, want)),
+             "predictions": (rel(got_aux["preds"], want_aux["preds"]),
+                             rel(ctrl_aux["preds"], want_aux["preds"]))}
+    print(f"bf16 train: {TRAIN_MICRO} x {TRAIN_BATCH} volumes of "
+          f"{tuple(inputs['image'].shape[2:])}, compute_dtype bfloat16, "
+          f"augmentation on, dropout {cfg.image_model.dropout_prob}; "
+          f"{launched} kernel launches, every call with bfloat16 x and w; "
+          f"loss kernel {got_aux['loss'].item():.6f} plain "
+          f"{want_aux['loss'].item():.6f} control "
+          f"{ctrl_aux['loss'].item():.6f}; relative L2 to the plain op's, "
+          f"kernel / control (the plain op with its product summed in two "
+          f"halves of K), limit {BF16_CONTROL_FACTOR:g} x the control's: "
+          + ", ".join(f"{k} {d:.3e} / {c:.3e}" for k, (d, c) in dists.items())
+          + f"; update norm kernel / plain {got.norm() / want.norm():.4f}")
+    bad = [k for k, (d, c) in dists.items() if not d <= BF16_CONTROL_FACTOR * c]
+    if bad:
+        raise AssertionError(f"the bfloat16 superstep with the kernel "
+                             f"disagrees with the plain op's: {bad}")
+    dist, ctrl = dists["update"]
+
+    state = new_state(2 + TRAIN_TIMED)
+    ms = timed_supersteps(lambda: superstep(state), volumes,
+                          "bf16 train superstep with augmentation")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        superstep(state)
+        torch.cuda.synchronize()
+    kinds = kernel_kinds(prof, float(np.median(ms)),
+                         "bf16 augmented train superstep, wall the timed "
+                         "median", top=10)
+    return {"launches": launched, "update_rel_l2": dist,
+            "control_rel_l2": ctrl, "busy_ms": kinds["busy"],
+            "fused_ms": kinds.get("fused_bn_relu_matmul kernel", 0.0)}
+
+
+def bf16_cli_phase(fd, seed: int, workdir: Path) -> dict:
+    """The survival run, its export and --inference with TPU.compute_dtype
+    bfloat16 on the CLI phase's cohort (see the module docstring, phase
+    10). Returns the kernel launches of its runs."""
+    from mmnn_sts_torch.config import parse_config
+    from mmnn_sts_torch.data.nifti import load_nifti
+    from mmnn_sts_torch.infer import run as infer_run
+    from mmnn_sts_torch.infer.export import ServingModel
+    from mmnn_sts_torch.models import build_model
+    from mmnn_sts_torch.train import checkpoint, evaluate, loop
+
+    config = json.loads((workdir / "config.json").read_text())
+    config["TPU"] = {"compute_dtype": "bfloat16"}
+    config_path = workdir / "config_bf16.json"
+    config_path.write_text(json.dumps(config))
+    run_dir = workdir / "run_bf16"
+    run_dir.mkdir()
+    out = run_dir / "out"
+    per_forward = sum(build_model(parse_config(str(config_path)), True, True,
+                                  False, True).image_model.block_config)
+
+    def run(args, patches):
+        """run_cli in run_dir, the kernel's calls checked for bfloat16."""
+        seen = set()
+        out = run_cli(fd, args, run_dir, [kernel_dtypes(fd, seen), *patches])
+        check_bf16_calls(seen, f"bf16 {args[0]}")
+        return out
+
+    # 1. training, 2 epochs
+    epochs, counts = 2, {}
+    rc, wall, launches = run(
+        ["--images", "--preop", "--survival", "--blend", "--split",
+         "--config", str(config_path), "--epochs", str(epochs),
+         "--blend_update_interval", "1", "--output_path", str(out)], [
+            mock.patch.object(loop, "survival_train_superstep", counted(
+                loop.survival_train_superstep, counts, "supersteps")),
+            mock.patch.object(evaluate, "survival_eval_step", counted(
+                evaluate.survival_eval_step, counts, "val_forwards"))])
+    rows = [json.loads(x) for x in (out / "metrics.jsonl").read_text()
+            .splitlines()]
+    expected = (counts["supersteps"] * TRAIN_MICRO
+                + counts["val_forwards"]) * per_forward
+    if rc != 0 or [r["epoch"] for r in rows] != list(range(1, epochs + 1)) \
+            or not all(np.isfinite([r["train_loss"], r["val_loss"]]).all()
+                       for r in rows) or launches != expected:
+        raise AssertionError(f"bf16 CLI run: rc {rc}, rows {rows}, launches "
+                             f"{launches} vs {expected}")
+    fresh = build_model(parse_config(str(config_path)), True, True, False,
+                        True)
+    checkpoint.load_params_npz(str(out / "best_surv_model.npz"), fresh)
+    print(f"bf16 cli run: rc {rc}, {wall:.1f} s, {epochs} epochs; "
+          f"{counts['supersteps']} supersteps, {counts['val_forwards']} "
+          f"validation forwards; kernel launches {launches} = {expected} "
+          f"({launches // epochs} an epoch), every call with bfloat16 x and "
+          f"w; best_surv_model.npz loads strictly into a fresh model")
+    for r in rows:
+        print(f"  epoch {r['epoch']}: {r['epoch_seconds']:.2f} s, "
+              f"{r['samples_per_sec']:.1f} samples/s (host clock), train "
+              f"loss {r['train_loss']:.4f}, val loss {r['val_loss']:.4f}, "
+              f"train C {r['train_c']:.3f}, val C {r['val_c']:.3f}")
+
+    # 2. the export, served on the card
+    config["Hyperparameters"]["model_weights"] = str(
+        out / "best_surv_model.npz")
+    config["Preprocessing"] = {f"{s}_uid_location": str(run_dir /
+                                                        f"{s}_uids.txt")
+                               for s in ("train", "val", "test")}
+    trained = workdir / "trained_bf16.json"
+    trained.write_text(json.dumps(config))
+    artifact = workdir / "model_bf16.pt"
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "mmnn_sts_torch", "--images", "--preop",
+         "--survival", "--blend", "--config", str(trained), "--output_path",
+         str(out), "--export_path", str(artifact), "--device", CLI_DEVICE],
+        cwd=run_dir, env={**os.environ, "PYTHONPATH": str(REPO)},
+        capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        raise AssertionError(f"bf16 --export_path failed: "
+                             f"{res.stderr[-3000:]}")
+    export_s = time.perf_counter() - t0
+    served = ServingModel(str(artifact), device=CLI_DEVICE)
+    rng = np.random.default_rng(seed + 6)
+    seen = set()
+    with kernel_dtypes(fd, seen):
+        fd.fused_bn_relu_matmul.launches = 0
+        answer = served({
+            "image": (rng.normal(size=(3,) + (CLI_SIDE,) * 3 + (2,)) ** 2
+                      * 500).astype(np.float32),
+            "clinical": rng.normal(size=(3, 11)).astype(np.float32)})
+        served_launches = fd.fused_bn_relu_matmul.launches
+    check_bf16_calls(seen, "bf16 served forward")
+    if served.spec["compute_dtype"] != "bfloat16" \
+            or answer.dtype != np.float32 or answer.shape != (3, 2) \
+            or not np.isfinite(answer).all() or served_launches != per_forward:
+        raise AssertionError(f"bf16 servable: spec {served.spec}, answer "
+                             f"{answer!r}, launches {served_launches}")
+    print(f"bf16 export (python3 -m mmnn_sts_torch --export_path, a "
+          f"subprocess): {export_s:.1f} s; spec compute_dtype "
+          f"{served.spec['compute_dtype']}; ServingModel on the card, batch 3,"
+          f" {served_launches} launches with bfloat16 x and w: float32 "
+          f"{answer.tolist()}")
+    del served
+
+    # 3. --inference --survival with Grad-CAM on the test patients
+    test_uids = (run_dir / "test_uids.txt").read_text().split()
+    counts = {}
+    infer_out = workdir / "infer_bf16"
+    rc, wall, infer_launches = run(
+        ["--inference", "--images", "--preop", "--survival", "--blend",
+         "--config", str(trained), "--output_path", str(infer_out)], [
+            mock.patch.object(evaluate, "survival_eval_step", counted(
+                evaluate.survival_eval_step, counts, "eval_steps")),
+            mock.patch.object(infer_run, "export_attention_maps", counted(
+                infer_run.export_attention_maps, counts, "export"))])
+    n = len(test_uids)
+    expected = per_forward * (counts["eval_steps"] + 2 * n)
+    dirs = sorted(os.listdir(infer_out / "attention_maps"))
+    if rc != 0 or infer_launches != expected \
+            or dirs != sorted(f"_patient_{u}" for u in test_uids):
+        raise AssertionError(f"bf16 inference: rc {rc}, launches "
+                             f"{infer_launches} vs {expected}, {dirs}")
+    peaks = []
+    for d in dirs:
+        for name in ("att_map", "att_map_cls1"):
+            vol = load_nifti(str(infer_out / "attention_maps" / d /
+                                 f"{name}.nii.gz"))
+            if not (vol.shape == (CLI_SIDE,) * 3 and vol.min() >= 0.0
+                    and vol.max() <= 1.0 and vol.max() > 0.5):
+                raise AssertionError(f"bf16 {d}/{name}: {vol.shape}, range "
+                                     f"[{vol.min()}, {vol.max()}]")
+            peaks.append(vol.max())
+    print(f"bf16 infer survival: rc {rc}, {wall:.1f} s for {n} test "
+          f"patients; kernel launches {infer_launches} = {per_forward} x "
+          f"({counts['eval_steps']} eval step + 2 x {n}), every call with "
+          f"bfloat16 x and w; Grad-CAM export {counts['export_s'][0]:.2f} s;"
+          f" att_map peaks {min(peaks):.3f}..{max(peaks):.3f}")
+    return {"per_epoch": launches // epochs, "served": served_launches,
+            "inference": infer_launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1637,11 +1943,15 @@ def main(argv=None) -> int:
         launches = serve_phase(fd, args.seed, Path(tmp))
     backward = backward_phase(fd, args.seed, REPO / "chiprun_out")
     train_launches = train_phase(fd, args.seed)
+    bf16_train = bf16_train_phase(fd, args.seed)
     with tempfile.TemporaryDirectory() as tmp:
         cli = cli_phase(fd, args.seed, Path(tmp))
         infer = infer_phase(fd, args.seed, Path(tmp))
+        bf16_cli = bf16_cli_phase(fd, args.seed, Path(tmp))
 
     main_path = [r for r in rows if r["batch"] == 8 and r["dtype"] == "float32"]
+    bf16_path = [r for r in rows
+                 if r["batch"] == 8 and r["dtype"] == "bfloat16"]
     entry = {
         "name": "fused_bn_relu_matmul",
         "route": "cuda",
@@ -1676,6 +1986,23 @@ def main(argv=None) -> int:
         "backward_plain_ms": sum(r["plain_ms"] for r in backward),
         "backward_bound_ms": sum(r["bound_ms"] for r in backward),
         "backward_max_rel_err": max(r["max_rel_err"] for r in backward),
+        # TPU.compute_dtype bfloat16: the 58 bfloat16 calls of one batch-8
+        # forward, against the plain op and the bound; the launches of the
+        # bfloat16 superstep (58 x 8), of a bfloat16 CLI epoch (2 supersteps
+        # and one validation forward), of its served batch-3 forward and of
+        # its --inference with Grad-CAM (58 x (1 + 2 x 15 patients))
+        "bf16_ms": sum(r["ms"] for r in bf16_path),
+        "bf16_plain_ms": sum(r["plain_ms"] for r in bf16_path),
+        "bf16_bound_ms": sum(r["bound_ms"] for r in bf16_path),
+        "bf16_bound_by": max(("bytes", "operations"), key=lambda by: sum(
+            r["bound_ms"] for r in bf16_path if r["bound_by"] == by)),
+        "bf16_max_abs_err": max(r["max_abs_err"] for r in rows
+                                if r["dtype"] == "bfloat16"),
+        "launches_per_bf16_superstep": bf16_train["launches"],
+        "launches_per_bf16_cli_epoch": bf16_cli["per_epoch"],
+        "launches_bf16_served_forward": bf16_cli["served"],
+        "launches_bf16_inference_survival": bf16_cli["inference"],
+        "bf16_superstep_fused_ms": bf16_train["fused_ms"],
     }
     print(json.dumps({"kernels": [entry]}))
     print(smi)

@@ -29,11 +29,12 @@ from __future__ import annotations
 import argparse
 import os
 
-# flag -> (what it runs, its ROADMAP.md Queue 1 item)
+# flag -> (what it runs, the name of its ROADMAP.md Queue 1 item)
 _NOT_PORTED = (
-    ("lr_finder", "the LR range test", 6),
+    ("lr_finder", "the LR range test", "The LR range test"),
     ("segmentation", "segmentation (the JAX package has no loop for it "
-                     "either; the cohort builder is)", 9),
+                     "either; the cohort builder is)",
+     "The segmentation cohort builder"),
 )
 
 
@@ -132,7 +133,7 @@ def main(argv=None) -> int:
         if getattr(args, flag):
             raise NotImplementedError(
                 f"--{flag}: {what} is not ported to mmnn_sts_torch yet "
-                f"(ROADMAP.md Queue 1 item {item})")
+                f"(ROADMAP.md Queue 1, '{item}')")
 
     # heavy imports deferred so --help stays fast
     import torch

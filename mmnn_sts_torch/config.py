@@ -6,7 +6,9 @@ reads a path ending in ``.json`` with ``json`` and imports ``yaml`` only
 for any other path, so neither a ``Config`` built from the dataclass
 defaults nor a JSON config needs PyYAML (JSON is a subset of YAML, so the
 JAX package's ``parse_config`` reads the same file into the same
-``Config``).
+``Config``). ``validate_config`` also refuses the TPU settings that the
+port does not run: ``remat``, and a mesh of more than one device or with a
+``space`` axis (the port runs on one card).
 
 Validation: t1t2 modality requires in_channels == 2.
 """
@@ -14,6 +16,7 @@ Validation: t1t2 modality requires in_channels == 2.
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -112,13 +115,14 @@ class HyperparametersConfig:
 @dataclass
 class TPUConfig:
     """The JAX package's ``TPU:`` section, read so that one config file
-    serves both packages. The port reads ``compute_dtype``,
-    ``device_resident_dataset`` and ``fused_epoch`` (only their defaults are
-    ported; the others raise ``ConfigurationError``), ``eval_chunk_size``,
-    ``debug_nans``, ``profile_dir`` and ``use_pallas_fused_dense`` (the key
-    layout of the written ``.npz``). ``microbatch_group`` is parsed and not
-    read: it groups microbatches inside the JAX superstep's program and
-    changes no result."""
+    serves both packages. The port reads ``compute_dtype`` (float32 or
+    bfloat16), ``eval_chunk_size``, ``debug_nans``, ``profile_dir`` and
+    ``use_pallas_fused_dense`` (the key layout of the written ``.npz``);
+    of ``device_resident_dataset``, ``fused_epoch``, ``remat``,
+    ``mesh_shape`` and ``mesh_axes`` it runs the one-card defaults only,
+    and the others raise ``ConfigurationError``. ``microbatch_group`` is
+    parsed and not read: it groups microbatches inside the JAX superstep's
+    program and changes no result."""
 
     mesh_shape: list[int] = field(default_factory=lambda: [-1])
     mesh_axes: list[str] = field(default_factory=lambda: ["data"])
@@ -234,6 +238,28 @@ def validate_config(cfg: Config) -> None:
         raise ConfigurationError(
             f"Unsupported cox_ties: {cfg.hyperparameters.cox_ties} "
             "(options: 'breslow', 'efron')"
+        )
+    # what the port parses but does not run: rematerialisation, a mesh of
+    # more than one device (-1 is the one card) and the space axis
+    tpu = cfg.tpu
+    if tpu.remat:
+        raise ConfigurationError(
+            "TPU.remat is not ported to mmnn_sts_torch yet (ROADMAP.md Queue "
+            "1, 'The remaining model families': remat as "
+            "torch.utils.checkpoint); set it to false"
+        )
+    devices = math.prod(1 if n == -1 else n for n in tpu.mesh_shape)
+    if devices > 1:
+        raise ConfigurationError(
+            f"TPU.mesh_shape {tpu.mesh_shape} asks for {devices} devices; "
+            "mmnn_sts_torch runs on one card (ROADMAP.md Queue 1, "
+            "'Multi-card meshes'); use [-1] or [1]"
+        )
+    if "space" in tpu.mesh_axes:
+        raise ConfigurationError(
+            f"TPU.mesh_axes {tpu.mesh_axes} names 'space': spatial "
+            "partitioning is not ported to mmnn_sts_torch yet (ROADMAP.md "
+            "Queue 1, 'Multi-card meshes'); use ['data']"
         )
 
 

@@ -5,8 +5,11 @@ The JAX package serializes a StableHLO program with the weights baked in.
 Here the servable is ``torch.save`` of a model spec made of plain values
 plus the ``state_dict``; it loads with ``torch.load(weights_only=True)``,
 so loading runs no pickled code. ``ServingModel`` rebuilds the model from
-the spec and runs the same eval forward: ``eval_transform`` per sample on the
-image stream (``preprocess``), the model, and head 0 of blend models.
+the spec, in the compute dtype the spec records, and runs the same eval
+forward: ``eval_transform`` per sample on the image stream
+(``preprocess``), the model, and head 0 of blend models. It answers
+float32: a bfloat16 model's logits widened (the JAX package's answer
+keeps them bfloat16, which ``np.savez`` writes as opaque 2-byte records).
 
 Run:  python -m mmnn_sts_torch.infer.export --weights best_surv_model.npz \
           --images --preop --blend --out model.pt [--config config.yaml]
@@ -42,7 +45,7 @@ def resolve_device(device=None) -> torch.device:
 def model_spec(cfg: Config, images: bool, preop: bool, postop: bool,
                blend: bool, num_tabular_inputs: int | None = None) -> dict:
     """What ``ServingModel`` needs to rebuild the model, as plain values:
-    ``build_model``'s arguments and the image config."""
+    ``build_model``'s arguments, the image config and the compute dtype."""
     if num_tabular_inputs is None:
         num_tabular_inputs = count_tabular_inputs(cfg, images, preop, postop)
     return {
@@ -52,6 +55,7 @@ def model_spec(cfg: Config, images: bool, preop: bool, postop: bool,
         "postop": bool(postop),
         "blend": bool(blend),
         "num_tabular_inputs": int(num_tabular_inputs),
+        "compute_dtype": cfg.tpu.compute_dtype,
     }
 
 
@@ -69,6 +73,7 @@ def load_exported(path: str, device=None) -> tuple[torch.nn.Module, dict]:
     spec = blob["spec"]
     cfg = Config()
     cfg.image_model = ImageModelConfig(**spec["image_model"])
+    cfg.tpu.compute_dtype = spec["compute_dtype"]
     model = build_model(cfg, spec["images"], spec["preop"], spec["postop"],
                         spec["blend"], spec["num_tabular_inputs"])
     model.load_state_dict(blob["state_dict"], strict=True)
@@ -149,7 +154,7 @@ class ServingModel:
             out = self.model(next(iter(tensors.values())))
         if self.spec["blend"]:
             out = out[0]
-        return out[:n].cpu().numpy()
+        return out[:n].float().cpu().numpy()
 
 
 def main(argv=None) -> int:

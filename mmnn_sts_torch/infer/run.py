@@ -164,7 +164,8 @@ def export_attention_maps(state, ds: DeviceDataset, cfg: InferenceConfig,
         if survival:
             dirname = f"_patient_{uid}"
             with torch.no_grad():
-                preds_out = _head0(model(inputs), cfg.blend)[0].cpu().numpy()
+                preds_out = _head0(model(inputs), cfg.blend)[0]
+            preds_out = preds_out.float().cpu().numpy()
             preds_filename = "preds.txt"
         else:
             correct = "".join(

@@ -10,9 +10,16 @@ statistics function serves the image and the clinical (N, C) BatchNorms.
 Train mode is ``module.training``, as in torch. A ``sample_mask`` (N,) of
 0/1 marks the valid samples of a wrap-padded ragged batch; dropout draws
 from the ``torch.Generator`` its caller passes.
+
+``dtype`` is the compute dtype of ``TPU.compute_dtype``, as flax's ``dtype``
+attribute: None (float32) casts nothing; ``torch.bfloat16`` casts a
+layer's input and its float32 parameters at the call, and the layer returns
+bfloat16. Parameters, BatchNorm statistics and the optimizer stay float32.
 """
 
 from __future__ import annotations
+
+import itertools
 
 import torch
 from torch import nn
@@ -94,10 +101,12 @@ class BatchNorm(nn.Module):
     (common.py:79-153): ``(x - mean) * (rsqrt(var + eps) * scale) + bias``
     in float32; batch statistics in train mode (then the running-stat
     update, and masked rows of the output zeroed), running statistics in
-    eval mode. Parameters and buffers carry torch's names."""
+    eval mode. The output is in ``dtype``, or in x's where that is None
+    (common.py:137, 153). Parameters and buffers carry torch's names."""
 
-    def __init__(self, num_features: int):
+    def __init__(self, num_features: int, dtype: torch.dtype | None = None):
         super().__init__()
+        self.compute_dtype = dtype
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -116,7 +125,7 @@ class BatchNorm(nn.Module):
             + self.bias.view(shape)
         if self.training and sample_mask is not None:
             out = out * sample_mask.float().view((-1,) + (1,) * (x.dim() - 1))
-        return out.to(x.dtype)
+        return out.to(self.compute_dtype or x.dtype)
 
 
 class Dropout(nn.Module):
@@ -140,23 +149,53 @@ class Dropout(nn.Module):
         return x * (keep.to(x.dtype) / (1.0 - self.p))
 
 
+class Conv3d(nn.Conv3d):
+    """``nn.Conv3d`` computing in ``compute_dtype`` where it is set (flax
+    ``Conv`` with ``dtype``)."""
+
+    compute_dtype: torch.dtype | None = None
+
+    def forward(self, x):
+        if self.compute_dtype is None:
+            return super().forward(x)
+        dt = self.compute_dtype
+        return self._conv_forward(x.to(dt), self.weight.to(dt), None)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` computing in ``compute_dtype`` where it is set (flax
+    ``Dense`` with ``dtype``: the product rounded to it, then the bias
+    added in it)."""
+
+    compute_dtype: torch.dtype | None = None
+
+    def forward(self, x):
+        if self.compute_dtype is None:
+            return super().forward(x)
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
+
+
 def conv(in_channels: int, out_channels: int, kernel: int, stride: int = 1,
-         padding: int = 0) -> nn.Conv3d:
+         padding: int = 0, dtype: torch.dtype | None = None) -> Conv3d:
     """Bias-free 3D convolution with torch-style integer padding and the
     JAX package's kaiming-normal fan-in init (its ``conv``,
-    ``use_bias=False``)."""
-    c = nn.Conv3d(in_channels, out_channels, kernel, stride=stride,
-                  padding=padding, bias=False)
+    ``use_bias=False``), computing in ``dtype``."""
+    c = Conv3d(in_channels, out_channels, kernel, stride=stride,
+               padding=padding, bias=False)
     kaiming_normal_(c.weight, in_channels * kernel ** 3)
+    c.compute_dtype = dtype
     return c
 
 
-def dense(in_features: int, out_features: int) -> nn.Linear:
+def dense(in_features: int, out_features: int,
+          dtype: torch.dtype | None = None) -> Linear:
     """Linear layer with flax ``Dense``'s init: lecun-normal kernel, zero
-    bias."""
-    d = nn.Linear(in_features, out_features)
+    bias, computing in ``dtype``."""
+    d = Linear(in_features, out_features)
     lecun_normal_(d.weight, in_features)
     nn.init.zeros_(d.bias)
+    d.compute_dtype = dtype
     return d
 
 
@@ -166,8 +205,20 @@ def max_pool(x, window: int, stride: int, padding: int):
 
 
 def avg_pool(x, window: int, stride: int):
-    """Average pool, VALID padding."""
-    return F.avg_pool3d(x, window, stride)
+    """Average pool, VALID padding. Below float32 it is flax's
+    ``avg_pool`` (common.py:185-188): a running sum over the window in
+    row-major order, each addition rounded to x's dtype, then divided by
+    the window's size (``F.avg_pool3d`` sums in float32)."""
+    if x.dtype == torch.float32:
+        return F.avg_pool3d(x, window, stride)
+    out = [(n - window) // stride + 1 for n in x.shape[2:]]
+    total = None
+    for i, j, k in itertools.product(range(window), repeat=3):
+        piece = x[:, :, i:i + stride * (out[0] - 1) + 1:stride,
+                  j:j + stride * (out[1] - 1) + 1:stride,
+                  k:k + stride * (out[2] - 1) + 1:stride]
+        total = piece if total is None else total + piece
+    return total / window ** 3
 
 
 def global_avg_pool(x):

@@ -15,6 +15,9 @@ and the dropouts draw from ``generator``. ``capture_gradcam`` also returns
 the Grad-CAM target, the last dense layer's 3x3x3 convolution output. The stem is a plain strided
 convolution with the logical (7, 7, 7) kernel; the JAX package's
 space-to-depth form of it is a TPU layout choice with the same numbers.
+``dtype`` (None or ``torch.bfloat16``) is the compute dtype of every
+convolution, BatchNorm output, bottleneck and dense layer, as the JAX
+module's ``dtype`` (densenet.py:110-111, 146-147, 199-202, 338-342).
 Submodule names follow the JAX package's parameter paths, so ``convert.py``
 maps checkpoints name for name.
 """
@@ -53,10 +56,13 @@ class FusedBottleneck(nn.Module):
     State mirrors the JAX ``fused1`` layout: ``scale``, ``bias`` and
     ``kernel`` (Cin, Cout), plus the running ``mean`` and ``var``.
     ``convert.py`` fills it from either JAX layout (``fused1`` or the
-    unfused ``norm1`` + ``conv1``)."""
+    unfused ``norm1`` + ``conv1``). With a ``dtype``, x and the kernel
+    reach the fused op in it, and so does the output."""
 
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int,
+                 dtype: torch.dtype | None = None):
         super().__init__()
+        self.compute_dtype = dtype
         self.scale = nn.Parameter(torch.ones(in_channels))
         self.bias = nn.Parameter(torch.zeros(in_channels))
         self.kernel = nn.Parameter(kaiming_normal_(
@@ -72,20 +78,23 @@ class FusedBottleneck(nn.Module):
                                  any_valid)
         else:
             mean, var = self.mean, self.var
+        dtype = self.compute_dtype or x.dtype
         y = bn_relu_conv1x1(
-            x.permute(0, 2, 3, 4, 1), self.scale, self.bias, mean, var,
-            self.kernel.to(x.dtype), eps=BN_EPS,
+            x.to(dtype).permute(0, 2, 3, 4, 1), self.scale, self.bias, mean,
+            var, self.kernel.to(dtype), eps=BN_EPS,
         )
         return y.permute(0, 4, 1, 2, 3)
 
 
 class DenseLayer(nn.Module):
     def __init__(self, in_channels: int, growth_rate: int, bn_size: int,
-                 dropout_prob: float = 0.0):
+                 dropout_prob: float = 0.0, dtype: torch.dtype | None = None):
         super().__init__()
-        self.fused1 = FusedBottleneck(in_channels, bn_size * growth_rate)
-        self.norm2 = BatchNorm(bn_size * growth_rate)
-        self.conv2 = conv(bn_size * growth_rate, growth_rate, 3, padding=1)
+        self.fused1 = FusedBottleneck(in_channels, bn_size * growth_rate,
+                                      dtype)
+        self.norm2 = BatchNorm(bn_size * growth_rate, dtype)
+        self.conv2 = conv(bn_size * growth_rate, growth_rate, 3, padding=1,
+                          dtype=dtype)
         self.dropout = Dropout(dropout_prob, channels=True)
 
     def forward(self, x, sample_mask=None, generator=None, captured=None):
@@ -100,10 +109,11 @@ class DenseLayer(nn.Module):
 
 
 class Transition(nn.Module):
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int,
+                 dtype: torch.dtype | None = None):
         super().__init__()
-        self.norm = BatchNorm(in_channels)
-        self.conv = conv(in_channels, out_channels, 1)
+        self.norm = BatchNorm(in_channels, dtype)
+        self.conv = conv(in_channels, out_channels, 1, dtype=dtype)
 
     def forward(self, x, sample_mask=None):
         return avg_pool(self.conv(F.relu(self.norm(x, sample_mask))), 2, 2)
@@ -126,27 +136,30 @@ class DenseNet(nn.Module):
         block_config: Sequence[int] = (6, 12, 24, 16),
         bn_size: int = 4,
         dropout_prob: float = 0.0,
+        dtype: torch.dtype | None = None,
     ):
         super().__init__()
         self.block_config = tuple(block_config)
-        self.conv0 = conv(in_channels, init_features, 7, stride=2, padding=3)
-        self.norm0 = BatchNorm(init_features)
+        self.conv0 = conv(in_channels, init_features, 7, stride=2, padding=3,
+                          dtype=dtype)
+        self.norm0 = BatchNorm(init_features, dtype)
         ch = init_features
         for i, num_layers in enumerate(self.block_config):
             for j in range(num_layers):
                 self.add_module(
                     f"block{i + 1}_layer{j + 1}",
-                    DenseLayer(ch, growth_rate, bn_size, dropout_prob))
+                    DenseLayer(ch, growth_rate, bn_size, dropout_prob, dtype))
                 ch += growth_rate
             if i == len(self.block_config) - 1:
-                self.norm5 = BatchNorm(ch)
+                self.norm5 = BatchNorm(ch, dtype)
             else:
-                self.add_module(f"transition{i + 1}", Transition(ch, ch // 2))
+                self.add_module(f"transition{i + 1}",
+                                Transition(ch, ch // 2, dtype))
                 ch //= 2
-        self.feature_layer = dense(ch, feature_channels)
+        self.feature_layer = dense(ch, feature_channels, dtype)
         self.feature_dropout = Dropout(dropout_prob)
         if out_channels is not None:
-            self.out = dense(feature_channels, out_channels)
+            self.out = dense(feature_channels, out_channels, dtype)
 
     def backbone(self, x, sample_mask=None, generator=None, captured=None):
         """x: (N, C, D, H, W) channels-last -> final BN'd feature map. The

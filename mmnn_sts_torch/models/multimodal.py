@@ -6,7 +6,9 @@ concat(image_features, clinical_features) -> Linear(2F, C). Blend mode adds
 per-modality heads and stacks (multimodal, image, clinical) into a
 (3, N, C) tensor; head 0 is the multimodal head (multimodal.py:76-86). The
 clinical MLP's dropout is ``clinical_dropout_prob``, 0.2 by default whatever
-the image model's (multimodal.py:32-37).
+the image model's (multimodal.py:32-37). ``dtype`` is the compute dtype of
+the clinical MLP and the three heads (multimodal.py:71-84); the image
+model brings its own.
 """
 
 from __future__ import annotations
@@ -21,18 +23,21 @@ from .mlp import MLP
 class MultiModalModel(nn.Module):
     def __init__(self, image_model: nn.Module, num_clinical_inputs: int,
                  num_classes: int = 2, num_features: int = 12,
-                 blend: bool = False, clinical_dropout_prob: float = 0.2):
+                 blend: bool = False, clinical_dropout_prob: float = 0.2,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.blend = blend
         self.image_model = image_model
         self.clinical_model = MLP(in_channels=num_clinical_inputs,
                                   out_channels=None,
                                   feature_channels=num_features,
-                                  dropout_prob=clinical_dropout_prob)
-        self.output_head = dense(2 * num_features, num_classes)
+                                  dropout_prob=clinical_dropout_prob,
+                                  dtype=dtype)
+        self.output_head = dense(2 * num_features, num_classes, dtype)
         if blend:
-            self.image_output_head = dense(num_features, num_classes)
-            self.clinical_output_head = dense(num_features, num_classes)
+            self.image_output_head = dense(num_features, num_classes, dtype)
+            self.clinical_output_head = dense(num_features, num_classes,
+                                              dtype)
 
     def forward(self, inputs: dict, sample_mask=None, generator=None,
                 capture_gradcam: bool = False):

@@ -4,13 +4,14 @@ the JAX package's models/registry.py).
 Ported so far: ``densenet121`` and ``tinydensenet`` image models, their
 multimodal wrapping with the clinical MLP, and the clinical-only MLP, with
 ``ImageModel.dropout_prob`` as the JAX registry passes it (registry.py:41;
-the multimodal model's clinical MLP keeps its own 0.2). Other model names,
-and ``compute_dtype: bfloat16``, raise ``ConfigurationError``; ROADMAP.md
-lists them as work to come.
+the multimodal model's clinical MLP keeps its own 0.2), each in
+``TPU.compute_dtype`` (float32 or bfloat16, registry.py:25-26). Other model
+names raise ``ConfigurationError``; ROADMAP.md lists them as work to come.
 """
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 from ..config import Config
@@ -22,18 +23,14 @@ from .multimodal import MultiModalModel
 _IMAGE_MODELS = {"densenet121": densenet121, "tinydensenet": tiny_densenet}
 
 
-def _check_ported(cfg: Config):
-    if cfg.tpu.compute_dtype != "float32":
-        raise ConfigurationError(
-            f"compute_dtype {cfg.tpu.compute_dtype!r} is not ported to "
-            "mmnn_sts_torch yet (see ROADMAP.md); use float32"
-        )
+def compute_dtype(cfg: Config) -> torch.dtype | None:
+    """The models' compute dtype: None (float32, no casts) or bfloat16."""
+    return torch.bfloat16 if cfg.tpu.compute_dtype == "bfloat16" else None
 
 
 def build_image_model(cfg: Config, class_head: bool = True) -> nn.Module:
     """The image encoder; ``class_head=False`` leaves out its output layer
     (the multimodal model uses only its features)."""
-    _check_ported(cfg)
     im = cfg.image_model
     name = im.name.lower()
     if im.spatial_dims != 3:
@@ -48,6 +45,7 @@ def build_image_model(cfg: Config, class_head: bool = True) -> nn.Module:
                 out_channels=im.num_classes if class_head else None,
                 feature_channels=im.feature_layers,
                 dropout_prob=im.dropout_prob,
+                dtype=compute_dtype(cfg),
             )
     raise ConfigurationError(
         f"Model name {name!r} is not ported to mmnn_sts_torch yet "
@@ -76,7 +74,6 @@ def build_model(
 ) -> nn.Module:
     """The task model: clinical-only MLP, image-only encoder, or multimodal
     fusion when images are combined with clinical predictors."""
-    _check_ported(cfg)
     if num_tabular_inputs is None:
         num_tabular_inputs = count_tabular_inputs(cfg, images, preop, postop)
     if not images:
@@ -85,6 +82,7 @@ def build_model(
             out_channels=cfg.image_model.num_classes,
             feature_channels=cfg.image_model.feature_layers,
             dropout_prob=cfg.image_model.dropout_prob,
+            dtype=compute_dtype(cfg),
         )
     if preop or postop:
         return MultiModalModel(
@@ -93,5 +91,6 @@ def build_model(
             num_classes=cfg.image_model.num_classes,
             num_features=cfg.image_model.feature_layers,
             blend=blend,
+            dtype=compute_dtype(cfg),
         )
     return build_image_model(cfg)

@@ -10,9 +10,11 @@ ops/gradcam.py:29-90).
   and space; a fresh copy of ``act`` weighted by it (the reference scales
   its activation buffer in place, which leaks class 0's weights into
   class 1's map; the JAX package implements the evident intent, and so
-  does this); the mean over channels; the minimum shifted to 0 and the
-  result divided by max(max, 1e-12); a trilinear resize to the input's
-  spatial shape;
+  does this); the mean over channels, all in ``act``'s dtype (bfloat16
+  under ``TPU.compute_dtype: bfloat16``, gradcam.py:62-84); then, widened
+  to float32, the minimum shifted to 0 and the result divided by
+  max(max, 1e-12), and a trilinear resize to the input's spatial shape
+  (the JAX package normalises and resizes in ``act``'s dtype);
 * batch size 1 only.
 
 The forward is one eval-mode call with autograd on, so every DenseNet
@@ -43,7 +45,7 @@ def attention_maps(model, inputs, num_classes: int, blend: bool = False):
       num_classes: C.
       blend: whether the output is the (K, N, C) head stack.
 
-    Returns (C, D, H, W) maps on the input's device.
+    Returns (C, D, H, W) float32 maps on the input's device.
     """
     image = inputs["image"] if isinstance(inputs, dict) else inputs
     if image.shape[0] != 1:
@@ -62,7 +64,8 @@ def attention_maps(model, inputs, num_classes: int, blend: bool = False):
             with torch.no_grad():
                 # act: (1, channels, d, h, w)
                 pooled = grads.mean(dim=(0, 2, 3, 4))
-                heatmap = (act * pooled.view(1, -1, 1, 1, 1)).mean(1)[0]
+                heatmap = (act * pooled.view(1, -1, 1, 1, 1)).mean(1)[0] \
+                    .float()
                 heatmap = heatmap - heatmap.min()
                 heatmap = heatmap / torch.clamp(heatmap.max(), min=1e-12)
                 maps.append(resize_trilinear(heatmap, spatial))

@@ -8,7 +8,7 @@ from the one cleaned clinical table.
 
 Device-resident only: ``TPU.device_resident_dataset: false`` (the JAX
 package's host-resident streaming) raises ``ConfigurationError`` (ROADMAP.md
-Queue 1 item 3).
+Queue 1, 'Streaming').
 """
 
 from __future__ import annotations
@@ -172,7 +172,8 @@ def make_split_dataset(
     if not cfg.tpu.device_resident_dataset:
         raise ConfigurationError(
             "TPU.device_resident_dataset: false (host-resident streaming) is "
-            "not ported to mmnn_sts_torch yet (ROADMAP.md Queue 1 item 3)"
+            "not ported to mmnn_sts_torch yet (ROADMAP.md Queue 1, "
+            "'Streaming')"
         )
     device = resolve_device(device)
     cohort = set(int(x) for x in bundle.uids)

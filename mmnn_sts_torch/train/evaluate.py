@@ -3,7 +3,8 @@ the JAX package's train/evaluate.py).
 
 The split is forwarded in chunks (or whole), the per-chunk losses are
 summed (the sum-over-batches semantics of both the Cox loss and the
-selection loss) and the predictions are concatenated on the host. The
+selection loss) and the predictions are concatenated on the host, as
+float32 (the float32 values of bfloat16 logits). The
 splits are device-resident, so the default is the whole split at once.
 """
 
@@ -42,7 +43,7 @@ def survival_eval_split(state, ds, blend: bool, ties: str, chunk: int = 0):
             state, ds.model_inputs(sl), ds.events[sl], ds.durations[sl],
             blend=blend, ties=ties,
         )
-        preds.append(out["preds"].cpu().numpy())
+        preds.append(out["preds"].float().cpu().numpy())
         loss += out["loss"].item()
         sel += out["selection_loss"].item()
     return {
@@ -61,7 +62,7 @@ def classification_eval_split(state, ds, pos_weight, blend: bool,
     for sl in _split_slices(ds, chunk):
         out = classification_eval_step(state, ds.model_inputs(sl),
                                        ds.labels[sl], pos_weight, blend=blend)
-        preds.append(out["preds"].cpu().numpy())
+        preds.append(out["preds"].float().cpu().numpy())
         elementwise.append(out["elementwise"].cpu().numpy())
         loss += out["loss"].item()
     return {

@@ -35,7 +35,7 @@ package checkpoints only the improving epochs and always starts at
 epoch 0.)
 
 ``TPU.fused_epoch`` (an XLA whole-epoch program in the JAX package) has no
-counterpart yet (a CUDA graph of the superstep, ROADMAP.md) and raises
+counterpart yet (ROADMAP.md Queue 1, 'Fused epochs as CUDA graphs') and raises
 ``ConfigurationError``.
 """
 
@@ -126,8 +126,8 @@ def _refuse_fused_epoch(cfg: LoopConfig):
     if cfg.fused_epoch:
         raise ConfigurationError(
             "TPU.fused_epoch (the whole epoch as one program) is not ported "
-            "to mmnn_sts_torch yet (ROADMAP.md: a CUDA graph of the "
-            "superstep); set it to false")
+            "to mmnn_sts_torch yet (ROADMAP.md Queue 1, 'Fused epochs as "
+            "CUDA graphs'); set it to false")
 
 
 def _on_device(a, device):
@@ -205,7 +205,7 @@ def train_survival(
             step_preds.append(aux["preds"])
         # one read-back per epoch
         epoch_loss = torch.stack(step_losses).sum().item()
-        preds_host = torch.stack(step_preds).cpu().numpy()
+        preds_host = torch.stack(step_preds).float().cpu().numpy()
 
         if profiler is not None:
             profiler.__exit__(None, None, None)
@@ -372,7 +372,7 @@ def train_classification(
             step_logits.append(aux["preds"])
         # one read-back per epoch
         epoch_loss = torch.stack(step_losses).sum().item()
-        logits_host = torch.stack(step_logits).cpu().numpy()
+        logits_host = torch.stack(step_logits).float().cpu().numpy()
 
         flat_order = order.reshape(-1)
         if cfg.blend:  # (S, K, B, C) -> (K, S * B, C)

@@ -232,7 +232,7 @@ def test_resume_carries_the_step_on(runs):
 @pytest.mark.parametrize("flag", ["--lr_finder", "--segmentation"])
 def test_unported_flags_raise(flag, runs):
     task = [] if flag == "--segmentation" else ["--survival"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, '"):
         port_main([flag, "--preop", "--config", str(runs["config"]),
                    "--device", "cpu"] + task)
 

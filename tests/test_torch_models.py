@@ -182,10 +182,56 @@ def test_registry_rejects_what_is_not_ported():
     cfg.image_model.name = "seresnet50"
     with pytest.raises(ConfigurationError, match="ROADMAP"):
         build_model(cfg, images=True, preop=False, postop=False, blend=False)
-    cfg = Config()
-    cfg.tpu.compute_dtype = "bfloat16"
-    with pytest.raises(ConfigurationError, match="ROADMAP"):
-        build_model(cfg, images=True, preop=True, postop=False, blend=True)
+
+
+def test_config_example_builds_the_flagship_in_bf16():
+    """config.example.yaml as shipped (compute_dtype bfloat16) builds the
+    flagship multimodal blend model, which runs a forward at its 64^3 in
+    bfloat16 with float32 parameters."""
+    from mmnn_sts_torch.config import parse_config
+
+    cfg = parse_config(os.path.join(REPO, "config.example.yaml"))
+    assert cfg.tpu.compute_dtype == "bfloat16"
+    model = build_model(cfg, images=True, preop=True, postop=False,
+                        blend=True).eval()
+    side = tuple(cfg.image_model.spatial_size)
+    rng = np.random.default_rng(0)
+    inputs = {"image": torch.from_numpy(rng.normal(size=(1,) + side + (2,))
+                                        .astype(np.float32)),
+              "clinical": torch.from_numpy(rng.normal(size=(1, 11))
+                                           .astype(np.float32))}
+    with torch.no_grad():
+        out = model(inputs)
+    assert out.shape == (3, 1, 2) and out.dtype == torch.bfloat16
+    assert torch.isfinite(out.float()).all()
+    assert {p.dtype for p in model.parameters()} == {torch.float32}
+
+
+@pytest.mark.parametrize("setting,value", [
+    ("remat", True),
+    ("mesh_shape", [2]),
+    ("mesh_shape", [-1, 4]),
+    ("mesh_axes", ["data", "space"]),
+])
+def test_config_refuses_what_one_card_does_not_run(tmp_path, setting, value):
+    """TPU.remat, a mesh of more than one device and a 'space' axis raise
+    at parse time, naming their ROADMAP item; [-1] and [1] with ['data']
+    (the one card) are accepted."""
+    import json
+
+    from mmnn_sts_torch.config import parse_config
+
+    path = tmp_path / "config.json"
+    for shape in ([-1], [1]):
+        path.write_text(json.dumps({"TPU": {"mesh_shape": shape,
+                                            "mesh_axes": ["data"]}}))
+        assert parse_config(str(path)).tpu.mesh_shape == shape
+    tpu = {setting: value}
+    if setting == "mesh_axes":
+        tpu["mesh_shape"] = [-1, 1]
+    path.write_text(json.dumps({"TPU": tpu}))
+    with pytest.raises(ConfigurationError, match="ROADMAP.md Queue 1, '"):
+        parse_config(str(path))
 
 
 def test_train_mode_is_refused():

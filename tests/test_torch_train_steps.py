@@ -198,9 +198,9 @@ def test_superstep_leaves_summed_gradients_finite(superstep):
 
 
 def test_train_path_runs_without_jax():
-    """Importing the train path and running a superstep, an eval step and a
-    blend update on the CPU loads neither jax nor the JAX package (a
-    subprocess: this pytest process imports jax)."""
+    """Importing the train path and running a superstep, an eval step, a
+    blend update and a bfloat16 superstep on the CPU loads neither jax nor
+    the JAX package (a subprocess: this pytest process imports jax)."""
     script = (
         "import sys, torch\n"
         "from mmnn_sts_torch.config import Config\n"
@@ -232,6 +232,15 @@ def test_train_path_runs_without_jax():
         "                        d[0].numpy())\n"
         "state.blend = blend_update(state.blend, torch.ones(3),\n"
         "                           torch.full((3,), 2.0), survival=True)\n"
+        "cfg.tpu.compute_dtype = 'bfloat16'\n"
+        "model = build_model(cfg, images=True, preop=True, postop=False,\n"
+        "                    blend=True)\n"
+        "state = create_train_state(model, *make_optimizer(\n"
+        "    model.parameters(), 1e-2, 1, 4), seed=0)\n"
+        "aux = survival_train_superstep(state, x, e, d, blend=True,\n"
+        "                               augment=False)\n"
+        "assert aux['preds'].dtype == torch.bfloat16\n"
+        "assert torch.isfinite(aux['loss']) and state.step == 1\n"
         "bad = sorted(k for k in sys.modules\n"
         "             if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax')\n"
         "             or k.startswith('mmnn_sts_tpu'))\n"
