@@ -10,7 +10,9 @@ Phases; any failure is an uncaught exception and a nonzero exit:
    checkout (one nvcc per source, all at once) and prints the seconds taken.
 3. Kernel: calls fused_bn_relu_matmul on the card at every (M, Cin) shape of
    DenseNet121's 58 bottlenecks at 64^3, for every batch bucket of the
-   servable (1, 2, 4, 8, 16, 32), in float32 and bfloat16, and holds each
+   servable (1, 2, 4, 8, 16, 32), in float32 (fused_bn_relu_matmul.cu, the
+   CUDA cores) and bfloat16 (fused_bn_relu_matmul_bf16.cu, the tensor
+   cores), and holds each
    result against the plain PyTorch version on the same inputs: max
    |kernel - plain| / max |plain| <= 1e-4 in float32 (sums in another
    order) and 2e-2 in bfloat16 (output rounded to bfloat16). Each shape
@@ -21,10 +23,11 @@ Phases; any failure is an uncaught exception and a nonzero exit:
    function) with CUDA events, inputs warm in L2: device time (calls
    queued behind a sleeping kernel), paced time (no sleep: the host's
    launch cost shows where it exceeds the device's) and the host's time
-   to enqueue a call, beside the least time the card could take.
-   Then times every launch plan the kernel takes at every shape of every
-   bucket in float32, each checked against the plain version, beside the
-   plan launch_plan picks (chiprun_out/plan_sweep.jsonl).
+   to enqueue a call, beside the least time the card could take, and
+   each block's share of that bound. Then times every launch plan each
+   kernel takes at every shape of every bucket, each checked against the
+   plain version, beside the plan launch_plan picks
+   (chiprun_out/plan_sweep.jsonl).
 4. Serve: the flagship model at full width (DenseNet121-3D at 64^3 x 2ch +
    the 11-feature clinical MLP, blend heads), with weights drawn with numpy
    from --seed in the JAX package's flat key layout (unfused names) and
@@ -303,7 +306,7 @@ def kernel_phase(fd, seed: int, out_dir: Path):
                     fd, x, a, b, w, TOLERANCE[dtype_name],
                     f"B={batch} M={m} Cin={k} {dtype_name}")
                 h = torch.relu(x.float() * a + b).to(dtype)
-                bm, bn, split_k = fd.launch_plan(m, k, n, sms)
+                bm, bn, split_k = fd.launch_plan(m, k, n, sms, dtype)
                 ms, host_ms, paced_ms = time_calls(
                     lambda: fd.fused_bn_relu_matmul(x, a, b, w))
                 plain_ms, plain_host_ms, plain_paced_ms = time_calls(
@@ -326,13 +329,16 @@ def kernel_phase(fd, seed: int, out_dir: Path):
     with open(out_dir / "chip_smoke_kernels.jsonl", "w") as f:
         for r in rows:
             f.write(json.dumps(r) + "\n")
-    print("kernel fused_bn_relu_matmul vs plain, per block (sums over the "
+    print("kernel fused_bn_relu_matmul vs plain, per block (float32: "
+          "fused_bn_relu_matmul.cu on the CUDA cores; bfloat16: "
+          "fused_bn_relu_matmul_bf16.cu on the tensor cores; sums over the "
           "block's calls: device ms, calls queued behind a sleep; paced ms, "
           "no sleep; host us to enqueue; max_rel_err limit "
           f"{TOLERANCE['float32']:.0e} float32, {TOLERANCE['bfloat16']:.0e} "
           "bfloat16; every shape also bit-equal over two calls and NaN rows "
           "as the plain version's; gemm_ms: torch.matmul(h, w) on a "
-          "precomputed h, the product alone, not the same function):")
+          "precomputed h, the product alone, not the same function; "
+          "of_bound: bound_ms / kernel_ms):")
     groups = {}
     for r in rows:
         groups.setdefault((r["batch"], r["dtype"], r["block"]), []).append(r)
@@ -349,29 +355,36 @@ def kernel_phase(fd, seed: int, out_dir: Path):
               f"plain_ms={tot['plain_ms']:.4f} paced "
               f"{tot['plain_paced_ms']:.4f} host_us "
               f"{tot['plain_host_us']:.1f} gemm_ms={tot['gemm_ms']:.4f} "
-              f"bound_ms={tot['bound_ms']:.4f} ({rs[0]['bound_by']})")
-        if dtype == "float32":  # bfloat16 takes the same plans
-            print("    plan Cin:BMxBN/split(CTAs) " + " ".join(
-                f"{r['cin']}:{r['bm']}x{r['bn']}/{r['split_k']}({r['ctas']})"
-                for r in rs))
+              f"bound_ms={tot['bound_ms']:.4f} ({rs[0]['bound_by']}) "
+              f"of_bound {tot['bound_ms'] / tot['ms']:.1%} "
+              f"host_us/call {tot['host_us'] / len(rs):.1f}")
+        print("    plan Cin:BMxBN/split(CTAs) " + " ".join(
+            f"{r['cin']}:{r['bm']}x{r['bn']}/{r['split_k']}({r['ctas']})"
+            for r in rs))
     for batch in BATCH_SIZES:
-        rs = [r for r in rows if r["batch"] == batch and r["dtype"] == "float32"]
-        print(f"  B={batch} float32, {len(rs)} calls: kernel_ms "
-              f"{sum(r['ms'] for r in rs):.4f} paced "
-              f"{sum(r['paced_ms'] for r in rs):.4f} plain_ms "
-              f"{sum(r['plain_ms'] for r in rs):.4f} paced "
-              f"{sum(r['plain_paced_ms'] for r in rs):.4f} gemm_ms "
-              f"{sum(r['gemm_ms'] for r in rs):.4f} bound_ms "
-              f"{sum(r['bound_ms'] for r in rs):.4f}")
+        for dtype in ("float32", "bfloat16"):
+            rs = [r for r in rows
+                  if r["batch"] == batch and r["dtype"] == dtype]
+            tot = {key: sum(r[key] for r in rs) for key in (
+                "ms", "paced_ms", "plain_ms", "plain_paced_ms", "gemm_ms",
+                "bound_ms", "host_us")}
+            print(f"  B={batch} {dtype}, {len(rs)} calls: kernel_ms "
+                  f"{tot['ms']:.4f} paced {tot['paced_ms']:.4f} plain_ms "
+                  f"{tot['plain_ms']:.4f} paced {tot['plain_paced_ms']:.4f} "
+                  f"gemm_ms {tot['gemm_ms']:.4f} bound_ms "
+                  f"{tot['bound_ms']:.4f} of_bound "
+                  f"{tot['bound_ms'] / tot['ms']:.1%} host_us/call "
+                  f"{tot['host_us'] / len(rs):.1f}")
     return rows
 
 
 def sweep_phase(fd, seed: int, out_dir: Path):
-    """Every launch plan the kernel takes (each tile of ``fd.TILES`` with
-    every K-split ``fd.max_split`` admits) at every (M, Cin) of every batch
-    bucket in float32: each result held against the plain version, and
-    its device time. Prints, per block, the sum of ``launch_plan``'s plans
-    beside the sum of each shape's fastest plan; every timing goes to
+    """Every launch plan each kernel takes (each tile of
+    ``fd.plan_tiles(dtype)`` with every K-split ``fd.max_split`` admits) at
+    every (M, Cin) of every batch bucket, in float32 and bfloat16: each
+    result held against the plain version, and its device time. Prints, per
+    dtype and block, the sum of ``launch_plan``'s plans beside the sum of
+    each shape's fastest plan; every timing goes to
     chiprun_out/plan_sweep.jsonl."""
     from mmnn_sts_torch.infer.export import BATCH_SIZES
     from mmnn_sts_torch.models.densenet import bottleneck_shapes, densenet121
@@ -380,39 +393,45 @@ def sweep_phase(fd, seed: int, out_dir: Path):
     sms = fd.sm_count(torch.cuda.current_device())
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    for batch in BATCH_SIZES:
-        for block, m, k in bottleneck_shapes(model, batch):
-            x, a, b, w = operands(gen, m, k, torch.float32)
-            want = fd.fused_bn_relu_matmul_reference(x, a, b, w)
-            chosen = fd.launch_plan(m, k, n, sms)
-            for plan in ((bm, bn, split) for bm, bn in fd.TILES
-                         for split in range(1, fd.max_split(k) + 1)):
-                got = fd._launch(x, a, b, w, plan)
-                rel = ((got - want).abs().max() / want.abs().max()).item()
-                if not rel <= TOLERANCE["float32"]:
-                    raise AssertionError(f"plan {plan} at M={m} Cin={k}: "
-                                         f"rel err {rel:.2e}")
-                rows.append(dict(
-                    batch=batch, block=block, m=m, cin=k, bm=plan[0],
-                    bn=plan[1], split_k=plan[2],
-                    ctas=fd.plan_ctas(m, n, *plan), chosen=plan == chosen,
-                    ms=time_calls(lambda: fd._launch(x, a, b, w, plan))[0]))
+    for dtype_name, dtype in (("float32", torch.float32),
+                              ("bfloat16", torch.bfloat16)):
+        for batch in BATCH_SIZES:
+            for block, m, k in bottleneck_shapes(model, batch):
+                x, a, b, w = operands(gen, m, k, dtype)
+                want = fd.fused_bn_relu_matmul_reference(x, a, b, w).float()
+                chosen = fd.launch_plan(m, k, n, sms, dtype)
+                splits = range(1, fd.max_split(k, dtype) + 1)
+                for plan in ((bm, bn, split) for bm, bn in fd.plan_tiles(dtype)
+                             for split in splits):
+                    got = fd._launch(x, a, b, w, plan).float()
+                    rel = ((got - want).abs().max() / want.abs().max()).item()
+                    if not rel <= TOLERANCE[dtype_name]:
+                        raise AssertionError(
+                            f"{dtype_name} plan {plan} at M={m} Cin={k}: "
+                            f"rel err {rel:.2e}")
+                    rows.append(dict(
+                        dtype=dtype_name, batch=batch, block=block, m=m,
+                        cin=k, bm=plan[0], bn=plan[1], split_k=plan[2],
+                        ctas=fd.plan_ctas(m, n, *plan), chosen=plan == chosen,
+                        ms=time_calls(
+                            lambda: fd._launch(x, a, b, w, plan))[0]))
     with open(out_dir / "plan_sweep.jsonl", "w") as f:
         f.writelines(json.dumps(r) + "\n" for r in rows)
-    print("sweep float32: per block, sum of device ms over its calls with "
-          "launch_plan's plans and with each shape's fastest plan")
+    print("sweep: per dtype and block, sum of device ms over its calls with "
+          "launch_plan's plans and with each shape's fastest plan (every "
+          "plan checked against the plain version)")
     blocks = {}
     for r in rows:
-        blocks.setdefault((r["batch"], r["block"]), {}).setdefault(
+        blocks.setdefault((r["dtype"], r["batch"], r["block"]), {}).setdefault(
             r["cin"], []).append(r)
-    for (batch, block), shapes in blocks.items():
+    for (dtype, batch, block), shapes in blocks.items():
         chosen = sum(r["ms"] for rs in shapes.values() for r in rs
                      if r["chosen"])
         best = [min(rs, key=lambda r: r["ms"]) for rs in shapes.values()]
-        print(f"  B={batch} block{block}: chosen {chosen:.4f} ms, fastest "
-              f"{sum(r['ms'] for r in best):.4f} ms; fastest plans " + " ".join(
-                  f"{r['cin']}:{r['bm']}x{r['bn']}/{r['split_k']}({r['ctas']})"
-                  for r in best))
+        print(f"  {dtype} B={batch} block{block}: chosen {chosen:.4f} ms, "
+              f"fastest {sum(r['ms'] for r in best):.4f} ms; fastest plans "
+              + " ".join(f"{r['cin']}:{r['bm']}x{r['bn']}/{r['split_k']}"
+                         f"({r['ctas']})" for r in best))
 
 
 def random_flat_weights(model, seed: int, to_jax_flat) -> dict:
@@ -1967,6 +1986,10 @@ def main(argv=None) -> int:
         "bound_by": max(("bytes", "operations"), key=lambda by: sum(
             r["bound_ms"] for r in main_path if r["bound_by"] == by)),
         "library_ms": None,  # no single PyTorch call computes this function
+        # torch.matmul(h, w) on a precomputed h: the product alone
+        "gemm_ms": sum(r["gemm_ms"] for r in main_path),
+        "host_us_per_call": sum(r["host_us"] for r in main_path)
+        / len(main_path),
         # the flagship training superstep: 58 calls per microbatch x 8
         "launches_per_superstep": train_launches,
         # the CLI run: 3 epochs of 2 supersteps (464 each) and one
@@ -1986,25 +2009,40 @@ def main(argv=None) -> int:
         "backward_plain_ms": sum(r["plain_ms"] for r in backward),
         "backward_bound_ms": sum(r["bound_ms"] for r in backward),
         "backward_max_rel_err": max(r["max_rel_err"] for r in backward),
-        # TPU.compute_dtype bfloat16: the 58 bfloat16 calls of one batch-8
-        # forward, against the plain op and the bound; the launches of the
-        # bfloat16 superstep (58 x 8), of a bfloat16 CLI epoch (2 supersteps
-        # and one validation forward), of its served batch-3 forward and of
-        # its --inference with Grad-CAM (58 x (1 + 2 x 15 patients))
-        "bf16_ms": sum(r["ms"] for r in bf16_path),
-        "bf16_plain_ms": sum(r["plain_ms"] for r in bf16_path),
-        "bf16_bound_ms": sum(r["bound_ms"] for r in bf16_path),
-        "bf16_bound_by": max(("bytes", "operations"), key=lambda by: sum(
-            r["bound_ms"] for r in bf16_path if r["bound_by"] == by)),
-        "bf16_max_abs_err": max(r["max_abs_err"] for r in rows
-                                if r["dtype"] == "bfloat16"),
-        "launches_per_bf16_superstep": bf16_train["launches"],
-        "launches_per_bf16_cli_epoch": bf16_cli["per_epoch"],
-        "launches_bf16_served_forward": bf16_cli["served"],
-        "launches_bf16_inference_survival": bf16_cli["inference"],
-        "bf16_superstep_fused_ms": bf16_train["fused_ms"],
     }
-    print(json.dumps({"kernels": [entry]}))
+    # TPU.compute_dtype bfloat16: the tensor-core kernel. Its 58 calls of one
+    # batch-8 forward against the plain op, cuBLAS's product alone and the
+    # bound; its launches in the bfloat16 served forward (every call of the
+    # bfloat16 phases is checked to have bfloat16 x and w), the bfloat16
+    # superstep (58 x 8), a bfloat16 CLI epoch (2 supersteps and one
+    # validation forward) and its --inference with Grad-CAM
+    # (58 x (1 + 2 x 15 patients))
+    bf16_entry = {
+        "name": "fused_bn_relu_matmul_bf16",
+        "route": "cuda",
+        "source": "mmnn_sts_torch/kernels/csrc/fused_bn_relu_matmul_bf16.cu",
+        "replaces": "mmnn_sts_tpu/ops/pallas/fused_dense.py:58",
+        "launches": bf16_cli["served"],
+        "max_abs_err": max(r["max_abs_err"] for r in rows
+                           if r["dtype"] == "bfloat16"),
+        "ms": sum(r["ms"] for r in bf16_path),
+        "plain_ms": sum(r["plain_ms"] for r in bf16_path),
+        "bound_ms": sum(r["bound_ms"] for r in bf16_path),
+        "bound_by": max(("bytes", "operations"), key=lambda by: sum(
+            r["bound_ms"] for r in bf16_path if r["bound_by"] == by)),
+        "library_ms": None,  # no single PyTorch call computes this function
+        # torch.matmul(h, w) on a precomputed h: the product alone
+        "gemm_ms": sum(r["gemm_ms"] for r in bf16_path),
+        "host_us_per_call": sum(r["host_us"] for r in bf16_path)
+        / len(bf16_path),
+        "ms_batch32": sum(r["ms"] for r in rows if r["batch"] == 32
+                          and r["dtype"] == "bfloat16"),
+        "launches_per_superstep": bf16_train["launches"],
+        "launches_per_cli_epoch": bf16_cli["per_epoch"],
+        "launches_inference_survival": bf16_cli["inference"],
+        "superstep_fused_ms": bf16_train["fused_ms"],
+    }
+    print(json.dumps({"kernels": [entry, bf16_entry]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -15,7 +15,13 @@ the cohort build (``data/``, ``pipeline``), the training augmentation
 (``train/steps``: train-mode BatchNorm, dropout, the blended Cox loss,
 SGD-nesterov with OneCycle), the epoch loop with validation, checkpoints
 and blend updates (``train/loop``, ``train/checkpoint``); and the serving
-path (export + HTTP server) of those models and the clinical MLP. The
-DenseNet bottleneck (BN + ReLU + 1x1x1 conv) is a hand-written CUDA kernel
-(``kernels/csrc/fused_bn_relu_matmul.cu``) under autograd.
+path (export + HTTP server) of those models and the clinical MLP, each in
+float32 or bfloat16 (``TPU.compute_dtype``). The DenseNet bottleneck
+(BN + ReLU + 1x1x1 conv) runs under autograd through two hand-written CUDA
+kernels, one per dtype: ``kernels/csrc/fused_bn_relu_matmul.cu`` (float32,
+CUDA cores) and ``kernels/csrc/fused_bn_relu_matmul_bf16.cu`` (bfloat16,
+wgmma on the tensor cores). On a CPU tensor the op takes its plain PyTorch
+version, which the CPU tests hold against the JAX package; the ``cuda``
+tests and ``chip_smoke.py`` hold each kernel against that version on the
+card.
 """

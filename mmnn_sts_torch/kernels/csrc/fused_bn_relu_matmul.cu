@@ -1,19 +1,20 @@
-// Fused eval BatchNorm + ReLU + 1x1x1 convolution: out = relu(x * a + b) @ w.
+// Fused eval BatchNorm + ReLU + 1x1x1 convolution in float32:
+// out = relu(x * a + b) @ w.
 //
 // Replaces the JAX package's Pallas TPU kernel ops/pallas/fused_dense.py
 // (`_kernel` / `_forward`, reached through `fused_bn_relu_matmul` and
-// `bn_relu_conv1x1`): the bottleneck of every DenseNet dense layer, 58 calls
-// per DenseNet121 forward.
+// `bn_relu_conv1x1`) for float32 operands: the bottleneck of every DenseNet
+// dense layer, 58 calls per DenseNet121 forward. bfloat16 operands take
+// fused_bn_relu_matmul_bf16.cu, on the tensor cores.
 //
-//   x   (M, K) row-major, float32 or bfloat16   (channels-last activations)
-//   a,b (K,)   float32                           (folded BN affine)
-//   w   (K, N) row-major, same dtype as x        (1x1x1 conv kernel)
-//   out (M, N) row-major, dtype of x
+//   x   (M, K) row-major float32   (channels-last activations)
+//   a,b (K,)   float32             (folded BN affine)
+//   w   (K, N) row-major float32   (1x1x1 conv kernel)
+//   out (M, N) row-major float32
 //
-// Numerics follow fused_dense.py:45-50: the prologue runs in float32, h is
-// rounded to w's dtype, products accumulate in float32 on the CUDA cores
-// (FFMA, no TF32) and the result is rounded to x's dtype. The prologue uses
-// __fmul_rn/__fadd_rn so that nvcc does not contract it into an FMA (h is
+// Numerics follow fused_dense.py:45-50: the prologue runs in float32 and
+// the products accumulate in float32 on the CUDA cores (FFMA, no TF32). The
+// prologue uses __fmul_rn/__fadd_rn so that nvcc does not contract it into an FMA (h is
 // then bit-identical to the plain PyTorch version, x.float() * a + b), and
 // its ReLU is jnp.maximum(z, 0), which keeps a NaN (fmaxf would return 0).
 //
@@ -32,27 +33,24 @@
 // barrier, rank r sums a 1/S share of the tile over ranks 0..S-1 in that
 // order, reading its peers through distributed shared memory, and writes the
 // share out. One launch, no workspace, no atomics, and the same bits from run
-// to run. Every row of x and w must be whole 16-byte pieces (K and N multiples
-// of 4 in float32, of 8 in bfloat16) and every operand 16-byte aligned: the
-// launcher refuses other shapes, and the wrapper raises on them first. Every
+// to run. Every row of x and w must be whole 16-byte pieces (K and N
+// multiples of 4) and every operand 16-byte aligned: the launcher refuses
+// other shapes, and the wrapper raises on them first. Every
 // DenseNet of the model registry has K a multiple of 32 and N = 128.
 //
 // What bounds it on an H100: at DenseNet121's shapes (K = 64..992, N = 128)
-// it does 2*N = 256 flops per element of x it reads. In float32 (64 flops per
-// byte, against the CUDA cores' 67 TFLOP/s over 3.35 TB/s = 20) the bound is
-// the operations; in bfloat16 (against the tensor cores' 989 TFLOP/s) the
-// bytes. Per dense block at batch 8: block 1 (M = 32768) and block 2
+// it does 2*N = 256 flops per element of x it reads, 64 flops per byte,
+// against the CUDA cores' 67 TFLOP/s over 3.35 TB/s = 20: the bound is the
+// operations. Per dense block at batch 8: block 1 (M = 32768) and block 2
 // (M = 4096) fill the card without a split and are bound by FFMA issue; in
 // blocks 3 and 4 (M = 512 and 64) the byte and flop bounds are under a
 // microsecond per call (0.8 us on average), and the true floor is a few
 // microseconds for one launch whose CTAs wait on a first load, walk a chain
 // of dependent chunks and meet at the cluster barriers (at M = 64 on an
 // H100, 6.6 us at Cin 256 and 9.5 us at Cin 992 with the fastest plan): the
-// split along K is what shortens that chain. bf16 also runs on the CUDA cores; its
-// tensor-core product waits for a served bf16 path.
+// split along K is what shortens that chain.
 
 #include <cooperative_groups.h>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -64,39 +62,15 @@ namespace {
 constexpr int BK = 32;         // depth of one chunk of K; K-slices are whole chunks
 constexpr int MAX_SPLIT = 8;   // the portable cluster size
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
 // relu(x * a + b) as jnp.maximum(z, 0.0): a NaN z stays NaN
 __device__ __forceinline__ float bn_relu(float x, float a, float b) {
   const float z = __fadd_rn(__fmul_rn(x, a), b);
   return (z > 0.f || z != z) ? z : 0.f;
 }
 
-// bfloat16 is the top half of a float32: widening is a shift
-__device__ __forceinline__ float bf16_lo(unsigned u) { return __uint_as_float(u << 16); }
-__device__ __forceinline__ float bf16_hi(unsigned u) { return __uint_as_float(u & 0xffff0000u); }
-
-// four consecutive values in shared memory, as float
+// four consecutive floats in shared memory
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  return make_float4(bf16_lo(u.x), bf16_hi(u.x), bf16_lo(u.y), bf16_hi(u.y));
 }
 
 // the 16 bytes of one copy, as floats
@@ -105,14 +79,6 @@ __device__ __forceinline__ void unpack(uint4 r, float (&f)[4]) {
   f[1] = __uint_as_float(r.y);
   f[2] = __uint_as_float(r.z);
   f[3] = __uint_as_float(r.w);
-}
-__device__ __forceinline__ void unpack(uint4 r, float (&f)[8]) {
-  const unsigned u[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = bf16_lo(u[i]);
-    f[2 * i + 1] = bf16_hi(u[i]);
-  }
 }
 
 // 16-byte asynchronous copy; src_bytes 0 writes zeros (a masked edge)
@@ -223,8 +189,8 @@ fused_bn_relu_matmul_kernel(const T* __restrict__ x, const float* __restrict__ a
       load_chunk(c_begin + i + STAGES - 1, (i + STAGES - 1) % STAGES);
     cp_async_commit();
 
-    // prologue, once per element of the chunk: h = bn_relu(x), rounded to
-    // w's dtype, stored k-major. Neighbouring threads take neighbouring rows.
+    // prologue, once per element of the chunk: h = bn_relu(x), stored
+    // k-major. Neighbouring threads take neighbouring rows.
     // Past K, x, a and b are zero-filled, so h is 0 there.
     const int stage = i % STAGES;
     const T* xc = xs + stage * L::X_STAGE;
@@ -235,8 +201,7 @@ fused_bn_relu_matmul_kernel(const T* __restrict__ x, const float* __restrict__ a
       unpack(*reinterpret_cast<const uint4*>(xc + r * L::XS + kv), v);
 #pragma unroll
       for (int e = 0; e < VEC; ++e)
-        hs[(kv + e) * L::HS + r] =
-            to_float(from_float<T>(bn_relu(v[e], abc[kv + e], abc[BK + kv + e])));
+        hs[(kv + e) * L::HS + r] = bn_relu(v[e], abc[kv + e], abc[BK + kv + e]);
     }
     __syncthreads();
 
@@ -306,7 +271,7 @@ fused_bn_relu_matmul_kernel(const T* __restrict__ x, const float* __restrict__ a
     const float v[4] = {s.x, s.y, s.z, s.w};
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      if (gc + j < N) out[(size_t)gr * N + gc + j] = from_float<T>(v[j]);
+      if (gc + j < N) out[(size_t)gr * N + gc + j] = v[j];
   }
   if (split > 1) cluster.sync();  // peers may still read this CTA's tile
 }
@@ -360,11 +325,11 @@ cudaError_t dispatch(int bm, int bn, const void* x, const float* a, const float*
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. (bm, bn, split_k) is the host's launch
-// plan: the output tile and the number of CTAs in a cluster that split K.
-// Launches on `stream` (PyTorch's current stream) on device `device`;
-// returns the cudaError_t of the launch.
-extern "C" int fused_bn_relu_matmul_launch(int dtype, const void* x,
+// float32 operands. (bm, bn, split_k) is the host's launch plan: the output
+// tile and the number of CTAs in a cluster that split K. Launches on
+// `stream` (PyTorch's current stream) on device `device`; returns the
+// cudaError_t of the launch.
+extern "C" int fused_bn_relu_matmul_launch(const void* x,
                                            const float* a, const float* b,
                                            const void* w, void* out, int M,
                                            int K, int N, int bm, int bn,
@@ -374,12 +339,7 @@ extern "C" int fused_bn_relu_matmul_launch(int dtype, const void* x,
   if (err != cudaSuccess) return (int)err;
   if (split_k < 1 || split_k > MAX_SPLIT) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    err = dispatch<float>(bm, bn, x, a, b, w, out, M, K, N, split_k, s);
-  else if (dtype == 1)
-    err = dispatch<__nv_bfloat16>(bm, bn, x, a, b, w, out, M, K, N, split_k, s);
-  else
-    err = cudaErrorInvalidValue;
+  err = dispatch<float>(bm, bn, x, a, b, w, out, M, K, N, split_k, s);
   const cudaError_t last = cudaGetLastError();
   return (int)(err != cudaSuccess ? err : last);
 }

@@ -7,11 +7,17 @@ BatchNorm + ReLU before it is an elementwise prologue on the same tile:
     out = relu(x * a + b) @ W,  a = scale / sqrt(var + eps),
                                 b = bias - mean * a
 
-On a CUDA tensor ``fused_bn_relu_matmul`` launches the hand-written kernel
-(``kernels/csrc/fused_bn_relu_matmul.cu``) with the tile and K-split that
-``launch_plan`` picks for the shape; on a CPU tensor it computes the plain
+On a CUDA tensor ``fused_bn_relu_matmul`` launches one of two hand-written
+kernels, one per dtype, with the tile and K-split that ``launch_plan`` picks
+for the shape and dtype: float32 takes
+``kernels/csrc/fused_bn_relu_matmul.cu`` (FFMA on the CUDA cores), bfloat16
+``kernels/csrc/fused_bn_relu_matmul_bf16.cu`` (wgmma on the tensor cores,
+fed by TMA). On a CPU tensor it computes the plain
 PyTorch version, ``fused_bn_relu_matmul_reference``. Nothing falls back: a
-build or launch failure raises.
+build or launch failure raises. The CPU tests hold the plain version against
+the JAX package's Pallas kernel and the launch plans against their rules;
+the ``cuda`` tests (tests/test_torch_fused_dense.py) and chip_smoke.py hold
+each kernel against the plain version on the card.
 
 ``FusedBnReluMatmul`` is the op under autograd (the Pallas entry's custom
 VJP): its forward is ``fused_bn_relu_matmul``, its backward the JAX
@@ -30,15 +36,24 @@ import torch
 
 from ..kernels import build
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel source (kernels/csrc/<name>.cu) of each dtype
+_SOURCES = {torch.float32: "fused_bn_relu_matmul",
+            torch.bfloat16: "fused_bn_relu_matmul_bf16"}
 
-# The kernel's output tiles (BM, BN), largest first (fused_bn_relu_matmul.cu,
-# ``dispatch``). A CTA has 128 threads, but 256 for 128 x 128, 64 for 32 x 32
-# and 32 for 16 x 32.
+# The float32 kernel's output tiles (BM, BN), largest first
+# (fused_bn_relu_matmul.cu, ``dispatch``). A CTA has 128 threads, but 256 for
+# 128 x 128, 64 for 32 x 32 and 32 for 16 x 32.
 TILES = ((128, 128), (64, 128), (64, 64), (32, 64), (32, 32), (16, 32))
 BK = 32  # depth of one chunk of K; a K-slice is whole chunks
 MAX_SPLIT = 8  # CTAs in a cluster: the portable cluster size
 RESIDENT_PER_SM = 4  # CTAs of 128 threads an SM runs at once
+
+# The bfloat16 kernel's tiles (fused_bn_relu_matmul_bf16.cu), largest
+# first: one warpgroup of 128 threads per 64 rows, so rows come in
+# multiples of 64. Its chunk of K is 64 deep (128 bytes of bf16).
+BF16_TILES = ((128, 128), (64, 128), (64, 64))
+BF16_BK = 64
+BF16_WAVE = 0.9  # a grid of this share of a wave of CTAs fills the card
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -50,10 +65,19 @@ def plan_ctas(m: int, n: int, bm: int, bn: int, split_k: int) -> int:
     return _cdiv(m, bm) * _cdiv(n, bn) * split_k
 
 
-def max_split(k: int) -> int:
-    """The deepest K-split a launch may take: 1 where K < 128, else as many
-    slices as keep each at least two chunks (64) deep, up to MAX_SPLIT."""
+def max_split(k: int, dtype=torch.float32) -> int:
+    """The deepest K-split a launch may take. float32: 1 where K < 128, else
+    as many slices as keep each at least two 32-deep chunks, up to
+    MAX_SPLIT. bfloat16: one 64-deep chunk a slice at least, up to
+    MAX_SPLIT (its plan takes two or more)."""
+    if dtype == torch.bfloat16:
+        return min(MAX_SPLIT, _cdiv(k, BF16_BK))
     return 1 if k < 4 * BK else min(MAX_SPLIT, k // (2 * BK))
+
+
+def plan_tiles(dtype) -> tuple[tuple[int, int], ...]:
+    """The output tiles the kernel of ``dtype`` takes, largest first."""
+    return BF16_TILES if dtype == torch.bfloat16 else TILES
 
 
 @functools.cache
@@ -63,20 +87,24 @@ def sm_count(device: int) -> int:
 
 
 @functools.cache
-def launch_plan(m: int, k: int, n: int, sms: int) -> tuple[int, int, int]:
-    """``(bm, bn, split_k)`` for an (M, K) x (K, N) call on a card of ``sms``
-    SMs: the output tile and the number of CTAs of a cluster that share it,
-    each walking 1/split_k of K's 32-wide chunks.
+def launch_plan(m: int, k: int, n: int, sms: int,
+                dtype=torch.float32) -> tuple[int, int, int]:
+    """``(bm, bn, split_k)`` for an (M, K) x (K, N) call in ``dtype`` on a
+    card of ``sms`` SMs: the output tile and the number of CTAs of a
+    cluster that share it, each walking 1/split_k of K's chunks. bfloat16
+    takes ``bf16_launch_plan``.
 
-    Where a tile of at least 32 x 64 (4 warps) fills the card (a wave of
-    >= ``sms`` CTAs) without a split, the largest such tile: a finer tile
-    walking all of K alone is slower than a split. Otherwise K is split as
-    deep as ``max_split`` allows (at small M the chain of chunks one CTA
-    walks, not the CTA count, sets the time), with the 32 x 64 tile, or the
-    largest finer one that reaches a wave where 32 x 64 does not; and the
-    split is cut back while the grid would exceed one round of resident
-    CTAs. ``chip_smoke.py`` (its sweep phase) times these choices against
-    every other plan."""
+    float32 (``TILES``, 32-deep chunks): where a tile of at least 32 x 64
+    (4 warps) fills the card (a wave of >= ``sms`` CTAs) without a split,
+    the largest such tile: a finer tile walking all of K alone is slower
+    than a split. Otherwise K is split as deep as ``max_split`` allows (at
+    small M the chain of chunks one CTA walks, not the CTA count, sets the
+    time), with the 32 x 64 tile, or the largest finer one that reaches a
+    wave where 32 x 64 does not; and the split is cut back while the grid
+    would exceed one round of resident CTAs. ``chip_smoke.py`` (its sweep
+    phase) times these choices against every other plan."""
+    if dtype == torch.bfloat16:
+        return bf16_launch_plan(m, k, n, sms)
     split_tiles = TILES[TILES.index((32, 64)):]
     for bm, bn in TILES[:TILES.index((32, 64)) + 1]:
         if plan_ctas(m, n, bm, bn, 1) >= sms:
@@ -87,6 +115,24 @@ def launch_plan(m: int, k: int, n: int, sms: int) -> tuple[int, int, int]:
     while split > 1 and plan_ctas(m, n, bm, bn, split) > RESIDENT_PER_SM * sms:
         split -= 1
     return bm, bn, split
+
+
+def bf16_launch_plan(m: int, k: int, n: int, sms: int) -> tuple[int, int, int]:
+    """The bfloat16 kernel's plan (``BF16_TILES``, 64-deep chunks): the
+    largest tile whose grid comes within a tenth of a wave of ``sms`` CTAs
+    unsplit (128 CTAs of 64 x 64 on 132 SMs beat any split); otherwise the
+    64 x 64 tile with K split so that every rank walks two chunks or more
+    and the grid stays within one wave, since at small M a launch's latency
+    (the first load, the cluster's barriers), not its chunk chain, sets the
+    time. ``chip_smoke.py``'s sweep times these choices against every plan
+    ``max_split`` admits."""
+    for bm, bn in BF16_TILES:
+        if plan_ctas(m, n, bm, bn, 1) >= BF16_WAVE * sms:
+            return bm, bn, 1
+    bm, bn = BF16_TILES[-1]
+    split = min(MAX_SPLIT, _cdiv(k, BF16_BK) // 2,
+                sms // plan_ctas(m, n, bm, bn, 1))
+    return bm, bn, max(1, split)
 
 
 def fused_bn_relu_matmul_reference(x, a, b, w):
@@ -113,7 +159,7 @@ def _check(x, a, b, w):
             f"fused_bn_relu_matmul: a {tuple(a.shape)} and b {tuple(b.shape)}"
             f" must be ({k},)"
         )
-    if x.dtype not in _DTYPE_CODES or w.dtype != x.dtype:
+    if x.dtype not in _SOURCES or w.dtype != x.dtype:
         raise TypeError(
             f"fused_bn_relu_matmul: x and w must both be float32 or bfloat16, "
             f"got {x.dtype} and {w.dtype}"
@@ -143,29 +189,33 @@ def _check(x, a, b, w):
 
 
 @functools.cache
-def _launcher():
-    fn = build.load("fused_bn_relu_matmul").fused_bn_relu_matmul_launch
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 \
-        + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+def _launcher(dtype):
+    """The C entry of ``dtype``'s kernel, ``<source>_launch(x, a, b, w,
+    out, M, K, N, bm, bn, split_k, device, stream)``."""
+    name = _SOURCES[dtype]
+    fn = getattr(build.load(name), f"{name}_launch")
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 \
+        + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def _launch(x, a, b, w, plan=None):
-    """Check CUDA operands, launch the kernel on the current stream with
-    ``plan`` = (bm, bn, split_k), by default ``launch_plan``'s, and return
-    the (M, N) output. Raises on a refused shape or a failed launch; counts
-    nothing."""
+    """Check CUDA operands, launch the kernel of x's dtype on the current
+    stream with ``plan`` = (bm, bn, split_k), by default ``launch_plan``'s
+    (one of ``plan_tiles(x.dtype)`` and a split up to ``max_split``), and
+    return the (M, N) output. Raises on a refused shape or a failed launch;
+    counts nothing."""
     _check(x, a, b, w)
     m, k = x.shape
     n = w.shape[1]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    plan = plan or launch_plan(m, k, n, sm_count(x.device.index))
-    rc = _launcher()(
-        _DTYPE_CODES[x.dtype], x.data_ptr(), a.data_ptr(), b.data_ptr(),
-        w.data_ptr(), out.data_ptr(), m, k, n, *plan, x.device.index,
+    plan = plan or launch_plan(m, k, n, sm_count(x.device.index), x.dtype)
+    rc = _launcher(x.dtype)(
+        x.data_ptr(), a.data_ptr(), b.data_ptr(), w.data_ptr(),
+        out.data_ptr(), m, k, n, *plan, x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if rc != 0:
@@ -180,8 +230,9 @@ def fused_bn_relu_matmul(x, a, b, w):
     """``relu(x * a + b) @ w``. x: (M, K) float32 or bfloat16; a, b: (K,)
     float32; w: (K, N) in x's dtype. Returns (M, N) in x's dtype.
 
-    CPU tensors take the plain version. CUDA tensors launch the kernel on
-    the current stream with ``launch_plan``'s plan and add one to
+    CPU tensors take the plain version. CUDA tensors launch the kernel of
+    their dtype on the current stream with ``launch_plan``'s plan and add
+    one to
     ``fused_bn_relu_matmul.launches``; there K and N must be multiples of
     16 bytes' worth of elements and every operand 16-byte aligned.
     """

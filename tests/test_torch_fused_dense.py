@@ -3,9 +3,10 @@
 tests/test_pallas.py runs it).
 
 On the CPU the port's wrapper takes the plain PyTorch version, so these tests
-hold that plain version against the Pallas kernel. The CUDA kernel itself is
-held against the plain version on the card (the ``cuda`` tests below, and
-chip_smoke.py over the whole DenseNet121 shape inventory). JAX is imported
+hold that plain version against the Pallas kernel. The CUDA kernels (float32
+on the CUDA cores, bfloat16 on the tensor cores) are held against the plain
+version on the card (the ``cuda`` tests below, and chip_smoke.py over the
+whole DenseNet121 shape inventory). JAX is imported
 inside a fixture, so that the ``cuda`` tests also run where JAX is not
 installed (``--noconftest`` keeps tests/conftest.py, which imports JAX, out):
 ``python -m pytest tests/test_torch_fused_dense.py -m cuda --noconftest``.
@@ -182,13 +183,14 @@ def test_cuda_kernel_matches_reference(m, cin, cout, dtype, tol):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("m,cin", [(512, 256), (64, 992), (700, 16)])
+@pytest.mark.parametrize("m,cin", [(512, 256), (64, 992), (700, 16),
+                                   (8, 992), (65, 40)])
 def test_cuda_kernel_nan_rows(m, cin, dtype, tol):
     """A NaN entry of x makes its output row NaN, as jnp.maximum and the
     plain version's relu do (fmaxf would drop it); the other rows agree
     with the plain version within the dtype's tolerance."""
     x, a, b, w = _cuda_operands(m, cin, 128, dtype)
-    nan_rows = [1, m // 2, m - 1]
+    nan_rows = sorted({1, m // 2, m - 1})
     for r in nan_rows:
         x[r, r % cin] = float("nan")
     got = fd.fused_bn_relu_matmul(x, a, b, w).float()
@@ -208,18 +210,80 @@ def test_cuda_split_k_is_bit_reproducible(dtype):
     so two calls on the same inputs give the same bits."""
     m, cin = 64, 992
     x, a, b, w = _cuda_operands(m, cin, 128, dtype)
-    assert fd.launch_plan(m, cin, 128, fd.sm_count(0))[2] > 1
+    assert fd.launch_plan(m, cin, 128, fd.sm_count(0), dtype)[2] > 1
     first = fd.fused_bn_relu_matmul(x, a, b, w)
     assert all(torch.equal(first, fd.fused_bn_relu_matmul(x, a, b, w))
                for _ in range(5))
 
 
 @pytest.mark.cuda
-def test_cuda_kernel_refuses_ragged_k():
-    """K = 30 is not whole 16-byte pieces of float32: the wrapper raises
-    before it launches, and counts nothing."""
-    x, a, b, w = _cuda_operands(64, 30, 128, torch.float32)
+@pytest.mark.parametrize("dtype,k,vec", [(torch.float32, 30, 4),
+                                         (torch.bfloat16, 36, 8)])
+def test_cuda_kernel_refuses_ragged_k(dtype, k, vec):
+    """K not whole 16-byte pieces (30 floats, 36 bfloat16s): the wrapper
+    raises before it launches, and counts nothing."""
+    x, a, b, w = _cuda_operands(64, k, 128, dtype)
     before = fd.fused_bn_relu_matmul.launches
-    with pytest.raises(ValueError, match="multiples of 4"):
+    with pytest.raises(ValueError, match=f"multiples of {vec}"):
         fd.fused_bn_relu_matmul(x, a, b, w)
     assert fd.fused_bn_relu_matmul.launches == before
+
+
+# the bfloat16 kernel's edges: M below, at and past one 64-row tile, K below
+# one 64-deep chunk, not a multiple of it and densenet264-sized, N below,
+# at and not a multiple of the 128-wide tile
+BF16_EDGES = [(m, k, n) for m in (1, 8, 63, 65) for k in (8, 40, 2720)
+              for n in (8, 24, 128, 136)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", BF16_EDGES,
+                         ids=[f"M{m}-K{k}-N{n}" for m, k, n in BF16_EDGES])
+def test_cuda_bf16_kernel_every_plan(m, k, n):
+    """The tensor-core kernel under every plan it takes (each of
+    BF16_TILES with every split max_split admits) against the plain
+    version, within 2e-2 of the largest output (the output is rounded to
+    bfloat16), with the same bits in two calls: the split's rank-order sum
+    is fixed. The wrapper's own plan counts one launch."""
+    x, a, b, w = _cuda_operands(m, k, n, torch.bfloat16)
+    want = fd.fused_bn_relu_matmul_reference(x, a, b, w)
+    for bm, bn in fd.BF16_TILES:
+        for split in range(1, fd.max_split(k, torch.bfloat16) + 1):
+            got = fd._launch(x, a, b, w, (bm, bn, split))
+            again = fd._launch(x, a, b, w, (bm, bn, split))
+            torch.cuda.synchronize()
+            assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+            assert _rel_err(got, want) <= 2e-2, (bm, bn, split)
+            assert torch.equal(got, again), (bm, bn, split)
+    before = fd.fused_bn_relu_matmul.launches
+    got = fd.fused_bn_relu_matmul(x, a, b, w)
+    torch.cuda.synchronize()
+    assert fd.fused_bn_relu_matmul.launches == before + 1
+    assert _rel_err(got, want) <= 2e-2
+
+
+def _densenet121_shapes(batch):
+    from mmnn_sts_torch.models import densenet
+
+    return [(m, k) for _, m, k in
+            densenet.bottleneck_shapes(densenet.densenet121(), batch)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k", _densenet121_shapes(8),
+                         ids=[f"M{m}-K{k}" for m, k in _densenet121_shapes(8)])
+def test_cuda_bf16_kernel_densenet121(m, k):
+    """Every bottleneck of DenseNet121 at batch 8 through the wrapper's
+    plan: within 2e-2 of the plain version, the same bits twice, and a NaN
+    in x row 3 gives NaN in that output row only."""
+    x, a, b, w = _cuda_operands(m, k, 128, torch.bfloat16)
+    got = fd.fused_bn_relu_matmul(x, a, b, w)
+    again = fd.fused_bn_relu_matmul(x, a, b, w)
+    want = fd.fused_bn_relu_matmul_reference(x, a, b, w)
+    torch.cuda.synchronize()
+    assert _rel_err(got, want) <= 2e-2 and torch.equal(got, again)
+    x[3, k // 2] = float("nan")
+    got = fd.fused_bn_relu_matmul(x, a, b, w).float()
+    torch.cuda.synchronize()
+    nan_rows = got.isnan().any(1)
+    assert nan_rows[3] and got[3].isnan().all() and nan_rows.sum() == 1

@@ -1,9 +1,10 @@
-"""The fused bottleneck's host side, on the CPU: the launch plan that
-ops/fused_dense.py hands the CUDA kernel at every DenseNet121 bottleneck
-shape, the NaN semantics the kernel must keep (held against the JAX
+"""The fused bottleneck's host side, on the CPU: the launch plans that
+ops/fused_dense.py hands the two CUDA kernels (float32 on the CUDA cores,
+bfloat16 on the tensor cores) at every DenseNet121 bottleneck shape and at
+edge shapes, the NaN semantics the kernels must keep (held against the JAX
 package's Pallas kernel in interpret mode), and the build cache's key.
 
-The kernel itself runs only on the card (tests/test_torch_fused_dense.py's
+The kernels themselves run only on the card (tests/test_torch_fused_dense.py's
 ``cuda`` tests and chip_smoke.py).
 """
 
@@ -29,6 +30,40 @@ SHAPES = sorted({(m, k) for bucket in BATCH_SIZES for _, m, k in
 # the smallest tile the kernel takes (fused_dense.TILES) and the deepest
 # K-split: what the finest plan of a shape could reach
 FINEST_BM, FINEST_BN = 16, 32
+# shapes at the edges of what the kernels take: M below, at and past one
+# 64-row tile; K below one 64-deep chunk, not a multiple of it, and a
+# densenet264-sized one
+EDGE_SHAPES = [(m, k) for m in (1, 8, 63, 65) for k in (8, 40, 2720)]
+# the float32 plans at SHAPES and EDGE_SHAPES as the float32 kernel's
+# redesign (split-K clusters) left them: per M, (from K, plan) for every K
+# from there to the next entry. The bfloat16 kernel must not move them.
+FP32_PLANS = {
+    1: ((8, (32, 64, 1)), (2720, (32, 64, 8))),
+    8: ((8, (32, 64, 1)), (512, (32, 64, 8))),
+    16: ((512, (32, 64, 8)),),
+    32: ((512, (32, 64, 8)),),
+    63: ((8, (32, 64, 1)), (2720, (32, 64, 8))),
+    64: ((256, (32, 64, 4)), (320, (32, 64, 5)), (384, (32, 64, 6)),
+         (448, (32, 64, 7)), (512, (32, 64, 8))),
+    65: ((8, (32, 64, 1)), (2720, (16, 32, 8))),
+    128: ((256, (32, 64, 4)), (320, (16, 32, 5)), (384, (16, 32, 6)),
+          (448, (16, 32, 7)), (512, (16, 32, 8))),
+    256: ((256, (16, 32, 4)), (320, (32, 32, 5)), (384, (32, 32, 6)),
+          (448, (32, 32, 7)), (512, (32, 32, 8))),
+    512: ((128, (16, 32, 2)), (192, (32, 32, 3)), (256, (32, 32, 4)),
+          (320, (32, 64, 5)), (384, (32, 64, 6)), (448, (32, 64, 7)),
+          (512, (32, 64, 8))),
+    1024: ((128, (32, 32, 2)), (192, (32, 64, 3)), (256, (32, 64, 4)),
+           (320, (32, 64, 5)), (384, (32, 64, 6)), (448, (32, 64, 7)),
+           (512, (32, 64, 8))),
+    2048: ((128, (32, 64, 2)), (192, (32, 64, 3)), (256, (32, 64, 4))),
+    4096: ((64, (32, 64, 1)),),
+    8192: ((64, (64, 64, 1)),),
+    16384: ((64, (64, 128, 1)),),
+    32768: ((64, (128, 128, 1)),),
+    65536: ((64, (128, 128, 1)),),
+    131072: ((64, (128, 128, 1)),),
+}
 
 
 def k_slices(k, split_k):
@@ -65,6 +100,52 @@ def test_launch_plan(m, k):
         assert ctas >= SMS
     # a split never takes the grid past one round of resident CTAs
     assert split_k == 1 or ctas <= fd.RESIDENT_PER_SM * SMS
+
+
+ALL_SHAPES = SHAPES + EDGE_SHAPES
+
+
+@pytest.mark.parametrize("m,k", ALL_SHAPES,
+                         ids=[f"M{m}-K{k}" for m, k in ALL_SHAPES])
+def test_launch_plan_float32_unchanged(m, k):
+    """The float32 kernel keeps its plans, case for case, whatever the
+    bfloat16 kernel takes."""
+    want = [plan for k_from, plan in FP32_PLANS[m] if k_from <= k][-1]
+    assert fd.launch_plan(m, k, N, SMS) == want
+    assert fd.launch_plan(m, k, N, SMS, torch.float32) == want
+
+
+@pytest.mark.parametrize("m,k", ALL_SHAPES,
+                         ids=[f"M{m}-K{k}" for m, k in ALL_SHAPES])
+def test_launch_plan_bf16(m, k):
+    """The bfloat16 kernel's plan: a tile of its own (rows a multiple of
+    64, one warpgroup each); unsplit where that tile's grid comes within a
+    tenth of a wave, else the 64 x 64 tile with a split <= 8 that leaves
+    every rank at least two 64-deep chunks (the kernel takes one) and keeps
+    the grid within one wave of resident CTAs."""
+    bm, bn, split_k = fd.launch_plan(m, k, N, SMS, torch.bfloat16)
+    assert (bm, bn, split_k) == fd.bf16_launch_plan(m, k, N, SMS)
+    assert (bm, bn) in fd.BF16_TILES == fd.plan_tiles(torch.bfloat16)
+    assert bm % 64 == 0 and bn % 64 == 0
+    ctas = fd.plan_ctas(m, N, bm, bn, split_k)
+    assert -(-m // bm) * bm >= m and -(-N // bn) * bn >= N
+    chunks = -(-k // fd.BF16_BK)
+    assert 1 <= split_k <= fd.max_split(k, torch.bfloat16) \
+        == min(8, chunks) <= fd.MAX_SPLIT
+    # rank r walks chunks [r*C/S, (r+1)*C/S): two or more each
+    if split_k > 1:
+        assert all((r + 1) * chunks // split_k - r * chunks // split_k >= 2
+                   for r in range(split_k))
+        assert (bm, bn) == (64, 64) and ctas <= SMS
+    # the largest tile that fills the card unsplit
+    fills = [t for t in fd.BF16_TILES
+             if fd.plan_ctas(m, N, *t, 1) >= fd.BF16_WAVE * SMS]
+    if fills:
+        assert (bm, bn, split_k) == (*fills[0], 1)
+    else:
+        # as deep as two chunks a rank and one wave allow
+        tiles = fd.plan_ctas(m, N, 64, 64, 1)
+        assert split_k == max(1, min(8, chunks // 2, SMS // tiles))
 
 
 def test_launch_plan_ragged_k():
@@ -123,3 +204,23 @@ def test_library_path_follows_every_csrc_file(tmp_path):
             flagged = build.library_path("k")
     assert len({first, edited, added, flagged}) == 4
     assert first.name.startswith("libk-") and first.suffix == ".so"
+
+
+def test_library_path_follows_the_bf16_source(tmp_path):
+    """Each dtype's kernel has its own source under csrc/ and its own
+    library, and an edit of the bfloat16 source rebuilds both libraries
+    (the key hashes every file), so a stale one is never loaded."""
+    assert sorted(fd._SOURCES.values()) == sorted(
+        p.stem for p in build.CSRC.glob("*.cu"))
+    for name in fd._SOURCES.values():
+        (tmp_path / f"{name}.cu").write_text("// v1\n")
+    with mock.patch.object(build, "CSRC", tmp_path):
+        before = {name: build.library_path(name)
+                  for name in fd._SOURCES.values()}
+        (tmp_path / "fused_bn_relu_matmul_bf16.cu").write_text("// v2\n")
+        after = {name: build.library_path(name)
+                 for name in fd._SOURCES.values()}
+    assert len(set(before.values())) == 2
+    assert all(before[name] != after[name] for name in before)
+    assert after["fused_bn_relu_matmul_bf16"].name.startswith(
+        "libfused_bn_relu_matmul_bf16-")
