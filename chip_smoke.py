@@ -25,9 +25,14 @@ Phases; any failure is an uncaught exception and a nonzero exit:
    launch cost shows where it exceeds the device's) and the host's time
    to enqueue a call, beside the least time the card could take, and
    each block's share of that bound. Then times every launch plan each
-   kernel takes at every shape of every bucket, each checked against the
-   plain version, beside the plan launch_plan picks
-   (chiprun_out/plan_sweep.jsonl).
+   kernel takes at every shape of buckets 1, 8 and 32, each checked
+   against the plain version, beside the plan launch_plan picks
+   (plan_sweep.jsonl in the output directory). Then the same checks at every
+   bottleneck shape of densenet169, densenet201 and densenet264 at batch 8
+   (82, 98 and 130 calls, K up to 2,656), in both dtypes; densenet264's 130
+   timed per block beside the plain version, the product alone and the
+   bound; and every plan of both kernels where their K exceeds
+   DenseNet121's largest (992): block 3 at M = 512 and block 4 at M = 64.
 4. Serve: the flagship model at full width (DenseNet121-3D at 64^3 x 2ch +
    the 11-feature clinical MLP, blend heads), with weights drawn with numpy
    from --seed in the JAX package's flat key layout (unfused names) and
@@ -57,9 +62,10 @@ Phases; any failure is an uncaught exception and a nonzero exit:
    durations. With cuDNN's TF32 off, one superstep with the kernel and one
    with the plain op patched in, from the same state with dropout 0: the
    kernel must launch exactly 58 x 8 = 464 times, and the losses, the
-   predictions and every summed gradient must agree within 1e-2 x
-   max(1, max |plain|); a third superstep with the plain op's product
-   summed in another order shows how far roundoff alone moves them. One
+   predictions, every summed gradient and every running statistic must
+   agree within 1e-2 x max(1, max |plain|); a third superstep with the
+   plain op's product summed in another order shows how far roundoff
+   alone moves them. One
    superstep with a ragged-tail mask: a finite loss and finite gradients.
    Then, with cuDNN's TF32 on (PyTorch's
    default) and dropout 0.2 as configured: a warm-up and 6 timed
@@ -84,7 +90,24 @@ Phases; any failure is an uncaught exception and a nonzero exit:
    L2 distance of the plain op's. Then a warm-up and 6 timed supersteps
    (volumes/s, peak memory) and one profiled superstep (busy share,
    kernel time by kind).
-8. CLI: the survival run as a user starts it, at full width. A synthetic
+8. Families: every other image model the registry builds (tinycnn,
+   monaidensenet, densenet169, densenet201, densenet264, seresnet50,
+   r3d_18), image-only at full width (Config() defaults, 64^3 x 2ch,
+   random weights from --seed) with cuDNN's TF32 off: an eval forward of
+   8 (finite (8, 2); the kernel launched 58 / 58 / 82 / 98 / 130 times for
+   the DenseNets, 0 for the others), one augmented survival superstep of
+   2 x 8 with the kernel and one with the plain op patched in from the
+   same state and draws (loss, predictions, every summed gradient and
+   running statistic within 1e-2 x max(1, |plain|); launches 2 x the
+   forward's; the peak memory), a timed superstep, and a bfloat16 eval
+   forward (finite, every kernel call with bfloat16 x and w).
+9. Remat: the flagship superstep (8 x 8, dropout 0.2, augment off, TF32
+   off) with TPU.remat off and on from the same weights and generator:
+   loss, predictions, summed gradients and running statistics within
+   1e-2 x max(1, |off|); launches 464 and 920 (every wrapped bottleneck's
+   forward runs again in the backward; the Grad-CAM target layer is not
+   wrapped); both peak memories and superstep times.
+10. CLI: the survival run as a user starts it, at full width. A synthetic
    cohort written without pandas (the csv module and the port's
    save_nifti): CLI_PATIENTS patients, T1 and T2 NIfTI volumes of
    CLI_VOLUME voxels (squared normals x 500, a mask inside), a clinical CSV
@@ -102,7 +125,7 @@ Phases; any failure is an uncaught exception and a nonzero exit:
    weights, and ServingModel on the card answers a batch-3 request with a
    finite (3, 2). Prints the cohort build's seconds, each epoch's seconds
    and samples/s, the best save's host stall and the artifacts written.
-9. Inference and classification, on the CLI phase's cohort and best
+11. Inference and classification, on the CLI phase's cohort and best
    weights, through mmnn_sts_torch.cli.main at full width: --inference
    --survival --blend with Grad-CAM on the 15 test patients (rc 0, a
    finite survival_model_predictions.csv row a patient, one
@@ -121,7 +144,7 @@ Phases; any failure is an uncaught exception and a nonzero exit:
    58 x (eval steps + patients)). Prints each run's seconds, the Grad-CAM
    export's seconds a patient and attention_maps' CUDA-event ms, the
    classification epochs' seconds and samples/s.
-10. The CLI in bfloat16, on the CLI phase's cohort: a JSON config with
+12. The CLI in bfloat16, on the CLI phase's cohort: a JSON config with
    TPU.compute_dtype bfloat16, 2 epochs (rc 0, finite losses, launches =
    supersteps x 464 + validation forwards x 58, every kernel call with
    bfloat16 x and w, the best .npz loading strictly), the export as a
@@ -130,7 +153,16 @@ Phases; any failure is an uncaught exception and a nonzero exit:
    --inference --survival with Grad-CAM on its test patients (att maps in
    [0, 1] with a max above 0.5, launches = 58 x (eval steps + 2 x
    patients)).
-11. Prints the kernels' JSON line, the card's line, and last
+13. The slice's CLI paths, on the CLI phase's cohort: --images --survival
+   --split with densenet201 for 2 epochs (rc 0, finite losses, launches =
+   supersteps x 8 x 98 + validation forwards x 98, the best .npz loading
+   strictly), its --export_path served on the card (98 launches, a finite
+   (3, 2)); --images --preop --survival --blend with tinycnn for 1 epoch
+   (0 launches) and its --inference with Grad-CAM (every att map in
+   [0, 1]); --lr_finder --images --preop --survival with the flagship
+   config (100 steps, 5,800 launches, lrs[0] = 1e-7 in float32, a finite
+   min-loss rate, lr_finder.png only where matplotlib is installed).
+14. Prints the kernels' JSON line, the card's line, and last
    {"ok": true, "device": {...}}.
 
 Per-shape kernel results go to chiprun_out/chip_smoke_kernels.jsonl, the
@@ -166,6 +198,10 @@ TOLERANCE = {"float32": 1e-4, "bfloat16": 2e-2}
 BOTTLENECK_OUT = 128  # bn_size 4 x growth 32
 MEASURED_ROUNDS = 5  # timed repeats after one warm-up
 SLEEP_CYCLES = 10_000_000  # ~6 ms at 1.75 GHz: longer than queuing 20 calls
+# the buckets whose DenseNet121 shapes the plan sweep times (of the six;
+# the kernel phase checks all six): the smallest, the training
+# microbatch's and the largest, to keep the script's time in hand
+SWEEP_BUCKETS = (1, 8, 32)
 # how kernel_kinds sorts kernel names into kinds (first match wins)
 PROFILE_KINDS = (
     ("fused_bn_relu_matmul kernel", ("fused_bn_relu_matmul",)),
@@ -196,6 +232,19 @@ BF16_CONTROL_FACTOR = 4.0
 # an epoch, the second ragged), each volume MRI-like in size
 CLI_PATIENTS, CLI_VOLUME, CLI_EPOCHS = 96, (80, 72, 48), 3
 CLI_MODEL, CLI_SIDE, CLI_DEVICE = "densenet121", 64, "cuda"
+# the wider DenseNets whose bottleneck shapes the kernel is checked at; the
+# plans are swept where their K exceeds DenseNet121's largest
+WIDE_MODELS = ("densenet169", "densenet201", "densenet264")
+DENSENET121_MAX_K = 992
+# every image model name beyond the flagship's, each driven at full width:
+# an eval forward, an augmented superstep of FAMILY_MICRO x TRAIN_BATCH with
+# the kernel and with the plain op, a bfloat16 eval forward
+FAMILIES = ("tinycnn", "monaidensenet", "densenet169", "densenet201",
+            "densenet264", "seresnet50", "r3d_18")
+FAMILY_MICRO = 2
+# the image-only CLI run of the widest-path slice, and the LR range test's
+# default number of steps
+WIDE_CLI_MODEL, WIDE_CLI_EPOCHS, LR_SWEEP_STEPS = "densenet201", 2, 100
 
 
 def bound_ms(m: int, k: int, n: int, dtype: str) -> tuple[float, str]:
@@ -313,8 +362,9 @@ def kernel_phase(fd, seed: int, out_dir: Path):
                     lambda: fd.fused_bn_relu_matmul_reference(x, a, b, w))
                 bound, bound_by = bound_ms(m, k, n, dtype_name)
                 rows.append(dict(
-                    batch=batch, dtype=dtype_name, block=block, m=m, cin=k,
-                    cout=n, bm=bm, bn=bn, split_k=split_k,
+                    model="densenet121", batch=batch, dtype=dtype_name,
+                    block=block, m=m, cin=k, cout=n, bm=bm, bn=bn,
+                    split_k=split_k,
                     ctas=fd.plan_ctas(m, n, bm, bn, split_k),
                     max_abs_err=diff, max_rel_err=rel, bit_equal=True,
                     nan_rows_match=True, ms=ms, paced_ms=paced_ms,
@@ -378,48 +428,41 @@ def kernel_phase(fd, seed: int, out_dir: Path):
     return rows
 
 
-def sweep_phase(fd, seed: int, out_dir: Path):
+def sweep_rows(fd, gen, shapes) -> list:
     """Every launch plan each kernel takes (each tile of
     ``fd.plan_tiles(dtype)`` with every K-split ``fd.max_split`` admits) at
-    every (M, Cin) of every batch bucket, in float32 and bfloat16: each
-    result held against the plain version, and its device time. Prints, per
-    dtype and block, the sum of ``launch_plan``'s plans beside the sum of
-    each shape's fastest plan; every timing goes to
-    chiprun_out/plan_sweep.jsonl."""
-    from mmnn_sts_torch.infer.export import BATCH_SIZES
-    from mmnn_sts_torch.models.densenet import bottleneck_shapes, densenet121
-
-    model, n = densenet121(), BOTTLENECK_OUT
+    each (batch, block, M, Cin) of ``shapes``, in float32 and bfloat16: each
+    result held against the plain version, and its device time."""
+    n, rows = BOTTLENECK_OUT, []
     sms = fd.sm_count(torch.cuda.current_device())
-    rows = []
-    gen = torch.Generator(device="cuda").manual_seed(seed)
     for dtype_name, dtype in (("float32", torch.float32),
                               ("bfloat16", torch.bfloat16)):
-        for batch in BATCH_SIZES:
-            for block, m, k in bottleneck_shapes(model, batch):
-                x, a, b, w = operands(gen, m, k, dtype)
-                want = fd.fused_bn_relu_matmul_reference(x, a, b, w).float()
-                chosen = fd.launch_plan(m, k, n, sms, dtype)
-                splits = range(1, fd.max_split(k, dtype) + 1)
-                for plan in ((bm, bn, split) for bm, bn in fd.plan_tiles(dtype)
-                             for split in splits):
-                    got = fd._launch(x, a, b, w, plan).float()
-                    rel = ((got - want).abs().max() / want.abs().max()).item()
-                    if not rel <= TOLERANCE[dtype_name]:
-                        raise AssertionError(
-                            f"{dtype_name} plan {plan} at M={m} Cin={k}: "
-                            f"rel err {rel:.2e}")
-                    rows.append(dict(
-                        dtype=dtype_name, batch=batch, block=block, m=m,
-                        cin=k, bm=plan[0], bn=plan[1], split_k=plan[2],
-                        ctas=fd.plan_ctas(m, n, *plan), chosen=plan == chosen,
-                        ms=time_calls(
-                            lambda: fd._launch(x, a, b, w, plan))[0]))
-    with open(out_dir / "plan_sweep.jsonl", "w") as f:
-        f.writelines(json.dumps(r) + "\n" for r in rows)
-    print("sweep: per dtype and block, sum of device ms over its calls with "
-          "launch_plan's plans and with each shape's fastest plan (every "
-          "plan checked against the plain version)")
+        for batch, block, m, k in shapes:
+            x, a, b, w = operands(gen, m, k, dtype)
+            want = fd.fused_bn_relu_matmul_reference(x, a, b, w).float()
+            chosen = fd.launch_plan(m, k, n, sms, dtype)
+            splits = range(1, fd.max_split(k, dtype) + 1)
+            for plan in ((bm, bn, split) for bm, bn in fd.plan_tiles(dtype)
+                         for split in splits):
+                got = fd._launch(x, a, b, w, plan).float()
+                rel = ((got - want).abs().max() / want.abs().max()).item()
+                if not rel <= TOLERANCE[dtype_name]:
+                    raise AssertionError(
+                        f"{dtype_name} plan {plan} at M={m} Cin={k}: "
+                        f"rel err {rel:.2e}")
+                rows.append(dict(
+                    dtype=dtype_name, batch=batch, block=block, m=m,
+                    cin=k, bm=plan[0], bn=plan[1], split_k=plan[2],
+                    ctas=fd.plan_ctas(m, n, *plan), chosen=plan == chosen,
+                    ms=time_calls(
+                        lambda: fd._launch(x, a, b, w, plan))[0]))
+    return rows
+
+
+def print_sweep(rows, what: str):
+    print(f"sweep, {what}: per dtype and block, sum of device ms over its "
+          "calls with launch_plan's plans and with each shape's fastest plan "
+          "(every plan checked against the plain version)")
     blocks = {}
     for r in rows:
         blocks.setdefault((r["dtype"], r["batch"], r["block"]), {}).setdefault(
@@ -432,6 +475,110 @@ def sweep_phase(fd, seed: int, out_dir: Path):
               f"fastest {sum(r['ms'] for r in best):.4f} ms; fastest plans "
               + " ".join(f"{r['cin']}:{r['bm']}x{r['bn']}/{r['split_k']}"
                          f"({r['ctas']})" for r in best))
+
+
+def sweep_phase(fd, seed: int, out_dir: Path):
+    """sweep_rows at every (M, Cin) of DenseNet121's bottlenecks at the
+    batch buckets SWEEP_BUCKETS; prints, per dtype and block, the sum of
+    ``launch_plan``'s plans beside the sum of each shape's fastest plan;
+    every timing goes to ``out_dir``'s plan_sweep.jsonl."""
+    from mmnn_sts_torch.models.densenet import bottleneck_shapes, densenet121
+
+    model = densenet121()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = sweep_rows(fd, gen, [(batch, block, m, k)
+                                for batch in SWEEP_BUCKETS
+                                for block, m, k in bottleneck_shapes(model,
+                                                                     batch)])
+    with open(out_dir / "plan_sweep.jsonl", "w") as f:
+        f.writelines(json.dumps(r) + "\n" for r in rows)
+    print_sweep(rows, f"DenseNet121's shapes at batch buckets "
+                f"{SWEEP_BUCKETS}")
+
+
+def wide_kernel_phase(fd, seed: int, out_dir: Path) -> dict:
+    """The kernel at every bottleneck shape of the wider DenseNets
+    (WIDE_MODELS) at batch TRAIN_BATCH, in float32 and bfloat16: each
+    checked as kernel_phase checks its shapes (check_call), densenet264's
+    130 also timed beside the plain version, cuBLAS's product alone and the
+    bound. The rows go to ``out_dir``'s chip_smoke_kernels.jsonl with their
+    model's name. Then every plan of both kernels at the shapes whose K
+    exceeds DenseNet121's largest (blocks 3 and 4: M = 512 and 64) goes to
+    plan_sweep.jsonl there. Returns densenet264's sums by dtype."""
+    from mmnn_sts_torch.models import densenet
+
+    n = BOTTLENECK_OUT
+    sms = fd.sm_count(torch.cuda.current_device())
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    rows = []
+    for name in WIDE_MODELS:
+        with torch.device("meta"):
+            shapes = densenet.bottleneck_shapes(getattr(densenet, name)(),
+                                                TRAIN_BATCH)
+        timed = name == WIDE_MODELS[-1]
+        for dtype_name, dtype in (("float32", torch.float32),
+                                  ("bfloat16", torch.bfloat16)):
+            for block, m, k in shapes:
+                x, a, b, w = operands(gen, m, k, dtype)
+                diff, rel = check_call(
+                    fd, x, a, b, w, TOLERANCE[dtype_name],
+                    f"{name} B={TRAIN_BATCH} M={m} Cin={k} {dtype_name}")
+                row = dict(model=name, batch=TRAIN_BATCH, dtype=dtype_name,
+                           block=block, m=m, cin=k, cout=n, max_abs_err=diff,
+                           max_rel_err=rel, bit_equal=True,
+                           nan_rows_match=True)
+                if timed:
+                    h = torch.relu(x.float() * a + b).to(dtype)
+                    bound, bound_by = bound_ms(m, k, n, dtype_name)
+                    row.update(
+                        plan=fd.launch_plan(m, k, n, sms, dtype),
+                        ms=time_calls(
+                            lambda: fd.fused_bn_relu_matmul(x, a, b, w))[0],
+                        plain_ms=time_calls(
+                            lambda: fd.fused_bn_relu_matmul_reference(
+                                x, a, b, w))[0],
+                        gemm_ms=time_calls(lambda: torch.matmul(h, w))[0],
+                        bound_ms=bound, bound_by=bound_by)
+                rows.append(row)
+    with open(out_dir / "chip_smoke_kernels.jsonl", "a") as f:
+        f.writelines(json.dumps(r) + "\n" for r in rows)
+    print(f"kernel at the wider DenseNets' bottleneck shapes, B={TRAIN_BATCH}"
+          " (check_call: vs plain within the TOLERANCE, bit-equal twice, NaN "
+          "rows as the plain version's):")
+    for name in WIDE_MODELS:
+        for dtype in ("float32", "bfloat16"):
+            rs = [r for r in rows if r["model"] == name
+                  and r["dtype"] == dtype]
+            print(f"  {name} {dtype}: {len(rs)} calls, Cin up to "
+                  f"{max(r['cin'] for r in rs)}, max_abs_err "
+                  f"{max(r['max_abs_err'] for r in rs):.2e} max_rel_err "
+                  f"{max(r['max_rel_err'] for r in rs):.2e}")
+    timed = {}
+    for dtype in ("float32", "bfloat16"):
+        rs = [r for r in rows if r["model"] == WIDE_MODELS[-1]
+              and r["dtype"] == dtype]
+        for blk in sorted({r["block"] for r in rs}) + [None]:
+            part = [r for r in rs if blk is None or r["block"] == blk]
+            tot = {key: sum(r[key] for r in part) for key in (
+                "ms", "plain_ms", "gemm_ms", "bound_ms")}
+            where = f"block{blk} M={part[0]['m']:6d}" if blk else "all"
+            print(f"  {WIDE_MODELS[-1]} {dtype} {where} n={len(part):3d}: "
+                  f"kernel_ms {tot['ms']:.4f} plain_ms {tot['plain_ms']:.4f} "
+                  f"gemm_ms {tot['gemm_ms']:.4f} bound_ms "
+                  f"{tot['bound_ms']:.4f} of_bound "
+                  f"{tot['bound_ms'] / tot['ms']:.1%}")
+        timed[dtype] = dict(tot, calls=len(rs), bound_by=max(
+            ("bytes", "operations"), key=lambda by: sum(
+                r["bound_ms"] for r in rs if r["bound_by"] == by)))
+
+    wide = sorted({(TRAIN_BATCH, r["block"], r["m"], r["cin"]) for r in rows
+                   if r["block"] >= 3 and r["cin"] > DENSENET121_MAX_K})
+    sweep = sweep_rows(fd, gen, wide)
+    with open(out_dir / "plan_sweep.jsonl", "a") as f:
+        f.writelines(json.dumps(dict(r, wide=True)) + "\n" for r in sweep)
+    print_sweep(sweep, f"the wider DenseNets' {len(wide)} shapes with K "
+                f"beyond DenseNet121's {DENSENET121_MAX_K}")
+    return timed
 
 
 def random_flat_weights(model, seed: int, to_jax_flat) -> dict:
@@ -817,28 +964,12 @@ def train_phase(fd, seed: int):
 
     def run_with(op):
         """A superstep from the initial state with ``op`` in place of the
-        kernel's wrapper: (its output, its summed gradients)."""
+        kernel's wrapper: its superstep_tensors."""
         state = new_state(False, 4)
         with mock.patch.object(fd, "fused_bn_relu_matmul", op):
-            aux = superstep(state)
-        return aux, [p.grad for p in state.model.parameters()]
-
-    def deviations(aux, grads):
-        """(|diff| / (TRAIN_TOLERANCE x max(1, |plain|)), name) of the loss,
-        the predictions and each summed gradient against the plain op's."""
-        out = []
-        for name, g, w in [("loss", aux["loss"], want["loss"]),
-                           ("preds", aux["preds"], want["preds"])] + [
-                (f"grad {n}", g, w) for n, g, w in zip(names, grads,
-                                                       want_grads)]:
-            limit = TRAIN_TOLERANCE * max(1.0, w.abs().max().item())
-            ratio = (g - w).abs().max().item() / limit
-            out.append((ratio if torch.isfinite(g).all() else float("inf"),
-                        name))
-        return out
+            return superstep_tensors(superstep(state), state.model)
 
     kernel_state = new_state(False, 4)
-    names = [n for n, _ in kernel_state.model.named_parameters()]
     fd.fused_bn_relu_matmul.launches = 0
     got = superstep(kernel_state)
     torch.cuda.synchronize()
@@ -846,24 +977,24 @@ def train_phase(fd, seed: int):
     if launched != 58 * TRAIN_MICRO:
         raise AssertionError(f"a superstep launched the kernel {launched} "
                              f"times, not {58 * TRAIN_MICRO}")
-    want, want_grads = run_with(fd.fused_bn_relu_matmul_reference)
-    kernel_dev = deviations(
-        got, [p.grad for p in kernel_state.model.parameters()])
+    want = run_with(fd.fused_bn_relu_matmul_reference)
+    kernel_dev = deviations(superstep_tensors(got, kernel_state.model), want)
     bad = [(r, n) for r, n in kernel_dev if not r <= 1.0]
     if bad:
         raise AssertionError(f"superstep, kernel vs plain op beyond "
                              f"{TRAIN_TOLERANCE:.0e} x max(1, |plain|): {bad}")
     # the control: the plain op with its product summed in another order
-    control_dev = deviations(*run_with(reassociated_reference))
+    control_dev = deviations(run_with(reassociated_reference), want)
     print(f"train superstep: {launched} kernel launches; loss kernel "
           f"{got['loss'].item():.6f} plain {want['loss'].item():.6f}; preds "
           f"{tuple(got['preds'].shape)}; loss, preds and "
-          f"{len(kernel_dev) - 2} summed gradients within {TRAIN_TOLERANCE:.0e}"
+          f"{len(kernel_dev) - 2} summed gradients and running statistics "
+          f"within {TRAIN_TOLERANCE:.0e}"
           f" x max(1, |plain|): largest {max(kernel_dev)[0]:.1%} of it "
           f"({max(kernel_dev)[1]}); the plain op with its product summed in "
           f"two halves of K, against the plain op: largest "
           f"{max(control_dev)[0]:.1%} ({max(control_dev)[1]})")
-    del want, want_grads
+    del want
 
     mask = torch.ones(TRAIN_MICRO, TRAIN_BATCH, device="cuda")
     mask[-1, TRAIN_BATCH // 2:] = 0  # a ragged tail: 60 of 64 valid
@@ -1153,7 +1284,7 @@ def counted(fn, counts: dict, name: str):
 
 def cli_phase(fd, seed: int, workdir: Path) -> dict:
     """The survival run through the port's CLI at full width (see the
-    module docstring, phase 8). Returns its kernel launches and counts."""
+    module docstring, phase 10). Returns its kernel launches and counts."""
     from mmnn_sts_torch import cli, pipeline
     from mmnn_sts_torch.config import parse_config
     from mmnn_sts_torch.infer.export import ServingModel
@@ -1407,7 +1538,7 @@ def run_cli(fd, args, where: Path, patches) -> tuple[int, float, int]:
 def infer_phase(fd, seed: int, workdir: Path) -> dict:
     """Inference and classification through the port's CLI at full width,
     on the CLI phase's cohort and best weights (see the module docstring,
-    phase 9). Returns the kernel launches of its runs."""
+    phase 11). Returns the kernel launches of its runs."""
     from mmnn_sts_torch.config import parse_config
     from mmnn_sts_torch.data.nifti import load_nifti
     from mmnn_sts_torch.infer import run as infer_run
@@ -1776,10 +1907,228 @@ def bf16_train_phase(fd, seed: int) -> dict:
             "fused_ms": kinds.get("fused_bn_relu_matmul kernel", 0.0)}
 
 
+def deviations(got: dict, want: dict) -> list:
+    """(|got - want| / (TRAIN_TOLERANCE x max(1, |want|)), name) of each
+    tensor of two same-keyed dicts; inf where ``got`` is not finite."""
+    out = []
+    for name, w in want.items():
+        g = got[name].float()
+        limit = TRAIN_TOLERANCE * max(1.0, w.float().abs().max().item())
+        ratio = (g - w.float()).abs().max().item() / limit
+        out.append((ratio if torch.isfinite(g).all() else float("inf"),
+                    name))
+    return out
+
+
+def superstep_tensors(aux, model) -> dict:
+    """The loss, the predictions, every summed gradient and every running
+    statistic after a superstep, by name."""
+    out = {"loss": aux["loss"], "preds": aux["preds"]}
+    out.update({f"grad {n}": p.grad for n, p in model.named_parameters()})
+    out.update({f"buffer {n}": b for n, b in model.named_buffers()})
+    return out
+
+
+def families_phase(fd, seed: int) -> dict:
+    """Every image model name beyond the flagship's (FAMILIES), image-only
+    at full width (see the module docstring, phase 8). Returns, by name,
+    the kernel's launches per forward and per superstep, the peak memory
+    and the times."""
+    from mmnn_sts_torch.config import Config
+    from mmnn_sts_torch.convert import load_jax_npz, to_jax_flat
+    from mmnn_sts_torch.infer.export import model_spec
+    from mmnn_sts_torch.models import build_model
+    from mmnn_sts_torch.ops.augment import eval_transform_batch
+    from mmnn_sts_torch.train.schedule import make_optimizer
+    from mmnn_sts_torch.train.state import create_train_state
+    from mmnn_sts_torch.train.steps import survival_train_superstep
+
+    flags = dict(images=True, preop=False, postop=False, blend=False)
+    rng = np.random.default_rng(seed + 8)
+    tf32, torch.backends.cudnn.allow_tf32 = \
+        torch.backends.cudnn.allow_tf32, False
+    print(f"families: image-only, {CLI_SIDE}^3 x 2ch, Config() defaults, "
+          f"random weights; eval forward of {TRAIN_BATCH}; augmented "
+          f"survival superstep of {FAMILY_MICRO} x {TRAIN_BATCH} with the "
+          f"kernel and with the plain op (cudnn.allow_tf32="
+          f"{torch.backends.cudnn.allow_tf32}), loss, predictions, summed "
+          f"gradients and running statistics within {TRAIN_TOLERANCE:.0e} x "
+          "max(1, |plain|); bfloat16 eval forward")
+    results = {}
+    for name in FAMILIES:
+        cfg = Config()
+        cfg.image_model.name = name
+        cfg.image_model.spatial_size = [CLI_SIDE] * 3
+        spec = model_spec(cfg, **flags)
+        base = build_model(cfg, **flags)
+        per_forward = sum(getattr(base, "block_config", ()))
+        weights = random_flat_weights(base, seed, to_jax_flat)
+        load_jax_npz(base, weights)
+        inputs, events, durations = synthetic_split(
+            rng, (FAMILY_MICRO, TRAIN_BATCH), spec, CLI_DEVICE)
+        image = inputs["image"]
+        vols = eval_transform_batch(image[0])
+
+        def new_state():
+            model = copy.deepcopy(base).to(CLI_DEVICE)
+            return create_train_state(model, *make_optimizer(
+                model.parameters(), TRAIN_LR, 4, 1), seed=seed)
+
+        def superstep(state):
+            return survival_train_superstep(state, image, events, durations,
+                                            augment=True)
+
+        state = new_state()
+        model = state.model.eval()
+        fd.fused_bn_relu_matmul.launches = 0
+        with torch.no_grad():
+            out = model(vols)
+        torch.cuda.synchronize()
+        launched = fd.fused_bn_relu_matmul.launches
+        if out.shape != (TRAIN_BATCH, 2) or not torch.isfinite(out).all() \
+                or launched != per_forward:
+            raise AssertionError(f"{name} eval forward: {tuple(out.shape)}, "
+                                 f"finite {bool(torch.isfinite(out).all())},"
+                                 f" {launched} launches, not {per_forward}")
+        with torch.no_grad():
+            forward_ms = event_ms(lambda: model(vols))
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fd.fused_bn_relu_matmul.launches = 0
+        got = superstep(state)
+        torch.cuda.synchronize()
+        step_launches = fd.fused_bn_relu_matmul.launches
+        peak = torch.cuda.max_memory_allocated()
+        got = superstep_tensors(got, state.model)
+        if step_launches != FAMILY_MICRO * per_forward:
+            raise AssertionError(f"{name} superstep: {step_launches} "
+                                 f"launches, not {FAMILY_MICRO * per_forward}")
+        plain = new_state()
+        with mock.patch.object(fd, "fused_bn_relu_matmul",
+                               fd.fused_bn_relu_matmul_reference):
+            want = superstep_tensors(superstep(plain), plain.model)
+        dev = deviations(got, want)
+        bad = [(r, n) for r, n in dev if not r <= 1.0]
+        if bad:
+            raise AssertionError(f"{name} superstep, kernel vs plain op: "
+                                 f"{sorted(bad)[-5:]}")
+        del plain, want, got
+        step_ms = event_ms(lambda: superstep(state), iters=1)
+
+        cfg.tpu.compute_dtype = "bfloat16"
+        model16 = build_model(cfg, **flags)
+        load_jax_npz(model16, weights)
+        model16.to(CLI_DEVICE).eval()
+        seen = set()
+        with kernel_dtypes(fd, seen), torch.no_grad():
+            fd.fused_bn_relu_matmul.launches = 0
+            out16 = model16(vols)
+            torch.cuda.synchronize()
+            launched16 = fd.fused_bn_relu_matmul.launches
+        if per_forward:
+            check_bf16_calls(seen, f"{name} bf16 eval forward")
+        if out16.dtype != torch.bfloat16 or out16.shape != (TRAIN_BATCH, 2) \
+                or not torch.isfinite(out16.float()).all() \
+                or launched16 != per_forward:
+            raise AssertionError(f"{name} bf16 eval forward: {out16!r}, "
+                                 f"{launched16} launches")
+        results[name] = dict(per_forward=launched, superstep=step_launches,
+                             peak_gib=peak / 2**30, forward_ms=forward_ms,
+                             superstep_ms=step_ms)
+        worst = max(dev)
+        print(f"  {name}: eval forward ({TRAIN_BATCH}, 2) finite, {launched} "
+              f"launches, {forward_ms:.2f} ms (CUDA events); superstep "
+              f"{step_launches} launches, {len(dev) - 2} gradients and "
+              f"statistics, largest {worst[0]:.1%} of the limit "
+              f"({worst[1]}), {step_ms:.1f} ms = "
+              f"{FAMILY_MICRO * TRAIN_BATCH * 1e3 / step_ms:.1f} volumes/s "
+              f"(TF32 off), max_memory_allocated {peak / 2**30:.2f} GiB; "
+              f"bf16 forward {launched16} launches"
+              + (", every call bf16" if per_forward else "")
+              + f", max|bf16 - fp32| {(out16.float() - out).abs().max():.3e}")
+        del state, model, model16, base
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = tf32
+    return results
+
+
+def remat_phase(fd, seed: int) -> dict:
+    """The flagship superstep with TPU.remat off and on (see the module
+    docstring, phase 9). Returns the launches, peaks and times of each."""
+    from mmnn_sts_torch.config import Config
+    from mmnn_sts_torch.convert import load_jax_npz, to_jax_flat
+    from mmnn_sts_torch.infer.export import model_spec
+    from mmnn_sts_torch.models import build_model
+    from mmnn_sts_torch.train.schedule import make_optimizer
+    from mmnn_sts_torch.train.state import create_train_state
+    from mmnn_sts_torch.train.steps import survival_train_superstep
+
+    flags = dict(images=True, preop=True, postop=False, blend=True)
+    cfg = Config()
+    cfg.image_model.spatial_size = [CLI_SIDE] * 3
+    spec = model_spec(cfg, **flags)
+    weights = random_flat_weights(build_model(cfg, **flags), seed,
+                                  to_jax_flat)
+    rng = np.random.default_rng(seed + 3)
+    inputs, events, durations = synthetic_split(
+        rng, (TRAIN_MICRO, TRAIN_BATCH), spec, CLI_DEVICE)
+    tf32, torch.backends.cudnn.allow_tf32 = \
+        torch.backends.cudnn.allow_tf32, False
+    runs = {}
+    for remat in (False, True):
+        cfg.tpu.remat = remat
+        model = build_model(cfg, **flags)
+        load_jax_npz(model, weights)
+        model.to(CLI_DEVICE)
+        state = create_train_state(model, *make_optimizer(
+            model.parameters(), TRAIN_LR, 4, 1), seed=seed)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        fd.fused_bn_relu_matmul.launches = 0
+        start.record()
+        aux = survival_train_superstep(state, inputs, events, durations,
+                                       blend=True, augment=False)
+        end.record()
+        torch.cuda.synchronize()
+        runs[remat] = dict(
+            tensors=superstep_tensors(aux, model),
+            launches=fd.fused_bn_relu_matmul.launches,
+            peak=torch.cuda.max_memory_allocated(),
+            ms=start.elapsed_time(end))
+        del state, model
+    torch.backends.cudnn.allow_tf32 = tf32
+    per_forward = sum(build_model(cfg, **flags).image_model.block_config)
+    expected = {False: TRAIN_MICRO * per_forward,
+                True: TRAIN_MICRO * (2 * per_forward - 1)}
+    dev = deviations(runs[True]["tensors"], runs[False]["tensors"])
+    bad = [(r, n) for r, n in dev if not r <= 1.0]
+    launches = {k: v["launches"] for k, v in runs.items()}
+    if bad or launches != expected:
+        raise AssertionError(f"remat superstep: launches {launches} vs "
+                             f"{expected}; beyond the limit {bad[-5:]}")
+    worst = max(dev)
+    print(f"remat: flagship superstep {TRAIN_MICRO} x {TRAIN_BATCH} at "
+          f"{CLI_SIDE}^3, dropout {cfg.image_model.dropout_prob}, TF32 off: "
+          f"TPU.remat on vs off, loss, predictions, {len(dev) - 2} summed "
+          f"gradients and running statistics within {TRAIN_TOLERANCE:.0e} x "
+          f"max(1, |off|): largest {worst[0]:.1%} ({worst[1]}); launches "
+          f"{launches[True]} vs {launches[False]}; max_memory_allocated "
+          f"{runs[True]['peak'] / 2**30:.2f} vs "
+          f"{runs[False]['peak'] / 2**30:.2f} GiB; one superstep "
+          f"{runs[True]['ms']:.1f} vs {runs[False]['ms']:.1f} ms (CUDA "
+          "events, the first of each)")
+    return {"launches": launches[True], "launches_off": launches[False],
+            "peak_gib": runs[True]["peak"] / 2**30,
+            "peak_gib_off": runs[False]["peak"] / 2**30}
+
+
 def bf16_cli_phase(fd, seed: int, workdir: Path) -> dict:
     """The survival run, its export and --inference with TPU.compute_dtype
     bfloat16 on the CLI phase's cohort (see the module docstring, phase
-    10). Returns the kernel launches of its runs."""
+    12). Returns the kernel launches of its runs."""
     from mmnn_sts_torch.config import parse_config
     from mmnn_sts_torch.data.nifti import load_nifti
     from mmnn_sts_torch.infer import run as infer_run
@@ -1917,6 +2266,173 @@ def bf16_cli_phase(fd, seed: int, workdir: Path) -> dict:
             "inference": infer_launches}
 
 
+def wide_cli_phase(fd, seed: int, workdir: Path) -> dict:
+    """The slice's paths through the CLI on the CLI phase's cohort (see the
+    module docstring, phase 13). Returns the kernel launches of its runs."""
+    import importlib.util
+
+    from mmnn_sts_torch.config import parse_config
+    from mmnn_sts_torch.data.nifti import load_nifti
+    from mmnn_sts_torch.infer import run as infer_run
+    from mmnn_sts_torch.infer.export import ServingModel
+    from mmnn_sts_torch.models import build_model
+    from mmnn_sts_torch.train import checkpoint, evaluate, loop, lr_finder
+
+    base = json.loads((workdir / "config.json").read_text())
+
+    def config(name: str, model: str, **hyper) -> Path:
+        cfg = copy.deepcopy(base)
+        cfg["ImageModel"]["name"] = model
+        cfg["Hyperparameters"].update(hyper)
+        path = workdir / f"{name}.json"
+        path.write_text(json.dumps(cfg))
+        return path
+
+    def uid_files(cfg_path: Path, run_dir: Path, weights: Path) -> Path:
+        cfg = json.loads(cfg_path.read_text())
+        cfg["Hyperparameters"]["model_weights"] = str(weights)
+        cfg["Preprocessing"] = {f"{s}_uid_location": str(run_dir /
+                                                        f"{s}_uids.txt")
+                                for s in ("train", "val", "test")}
+        path = cfg_path.with_name(cfg_path.stem + "_trained.json")
+        path.write_text(json.dumps(cfg))
+        return path
+
+    # 1. the image-only survival run of densenet201, its export served
+    cfg_path = config("wide", WIDE_CLI_MODEL)
+    run_dir = workdir / "run_wide"
+    run_dir.mkdir()
+    out = run_dir / "out"
+    per_forward = sum(build_model(parse_config(str(cfg_path)), True, False,
+                                  False, False).block_config)
+    counts = {}
+    rc, wall, launches = run_cli(fd, [
+        "--images", "--survival", "--split", "--config", str(cfg_path),
+        "--epochs", str(WIDE_CLI_EPOCHS), "--output_path", str(out)],
+        run_dir, [
+            mock.patch.object(loop, "survival_train_superstep", counted(
+                loop.survival_train_superstep, counts, "supersteps")),
+            mock.patch.object(evaluate, "survival_eval_step", counted(
+                evaluate.survival_eval_step, counts, "val_forwards"))])
+    rows = [json.loads(x) for x in (out / "metrics.jsonl").read_text()
+            .splitlines()]
+    expected = (counts["supersteps"] * TRAIN_MICRO
+                + counts["val_forwards"]) * per_forward
+    if rc != 0 or [r["epoch"] for r in rows] != list(
+            range(1, WIDE_CLI_EPOCHS + 1)) or not all(
+            np.isfinite([r["train_loss"], r["val_loss"]]).all()
+            for r in rows) or launches != expected:
+        raise AssertionError(f"{WIDE_CLI_MODEL} CLI run: rc {rc}, rows "
+                             f"{rows}, launches {launches} vs {expected}")
+    best = out / "best_surv_model.npz"
+    checkpoint.load_params_npz(str(best), build_model(
+        parse_config(str(cfg_path)), True, False, False, False))
+    wide_launches = launches
+    print(f"wide cli --images --survival --split, {WIDE_CLI_MODEL}: rc {rc}, "
+          f"{wall:.1f} s, {WIDE_CLI_EPOCHS} epochs; {counts['supersteps']} "
+          f"supersteps, {counts['val_forwards']} validation forwards; kernel "
+          f"launches {launches} = {expected} ({per_forward} a forward); "
+          f"best_surv_model.npz loads strictly")
+    for r in rows:
+        print(f"  epoch {r['epoch']}: {r['epoch_seconds']:.2f} s, "
+              f"{r['samples_per_sec']:.1f} samples/s (host clock), train "
+              f"loss {r['train_loss']:.4f}, val loss {r['val_loss']:.4f}, "
+              f"train C {r['train_c']:.3f}, val C {r['val_c']:.3f}")
+    trained = uid_files(cfg_path, run_dir, best)
+    artifact = workdir / "model_wide.pt"
+    rc, export_s, _ = run_cli(fd, [
+        "--images", "--survival", "--config", str(trained), "--output_path",
+        str(out), "--export_path", str(artifact)], run_dir, [])
+    served = ServingModel(str(artifact), device=CLI_DEVICE)
+    rng = np.random.default_rng(seed + 9)
+    fd.fused_bn_relu_matmul.launches = 0
+    answer = served((rng.normal(size=(3,) + (CLI_SIDE,) * 3 + (2,)) ** 2
+                     * 500).astype(np.float32))
+    served_launches = fd.fused_bn_relu_matmul.launches
+    if rc != 0 or answer.shape != (3, 2) or not np.isfinite(answer).all() \
+            or served_launches != per_forward:
+        raise AssertionError(f"{WIDE_CLI_MODEL} export: rc {rc}, answer "
+                             f"{answer!r}, launches {served_launches}")
+    print(f"wide cli --export_path (in process): {export_s:.1f} s; "
+          f"ServingModel on the card, batch 3, {served_launches} launches: "
+          f"{answer.tolist()}")
+    del served
+
+    # 2. tinycnn inside the multimodal blend model, then --inference with
+    # Grad-CAM (conv5 is its target; it has no bottleneck)
+    cfg_path = config("tinycnn", "tinycnn")
+    run_dir = workdir / "run_tinycnn"
+    run_dir.mkdir()
+    out = run_dir / "out"
+    rc, wall, launches = run_cli(fd, [
+        "--images", "--preop", "--survival", "--blend", "--split",
+        "--config", str(cfg_path), "--epochs", "1", "--output_path",
+        str(out)], run_dir, [])
+    if rc != 0 or launches != 0:
+        raise AssertionError(f"tinycnn CLI run: rc {rc}, {launches} "
+                             "launches")
+    trained = uid_files(cfg_path, run_dir, out / "best_surv_model.npz")
+    test_uids = (run_dir / "test_uids.txt").read_text().split()
+    infer_out = workdir / "infer_tinycnn"
+    counts = {}
+    rc, infer_wall, _ = run_cli(fd, [
+        "--inference", "--images", "--preop", "--survival", "--blend",
+        "--config", str(trained), "--output_path", str(infer_out)], run_dir,
+        [mock.patch.object(infer_run, "export_attention_maps", counted(
+            infer_run.export_attention_maps, counts, "export"))])
+    dirs = sorted(os.listdir(infer_out / "attention_maps"))
+    if rc != 0 or dirs != sorted(f"_patient_{u}" for u in test_uids):
+        raise AssertionError(f"tinycnn inference: rc {rc}, {dirs}")
+    peaks = []
+    for d in dirs:
+        for name in ("att_map", "att_map_cls1"):
+            vol = load_nifti(str(infer_out / "attention_maps" / d /
+                                 f"{name}.nii.gz"))
+            if not (vol.shape == (CLI_SIDE,) * 3 and vol.min() >= 0.0
+                    and vol.max() <= 1.0):
+                raise AssertionError(f"tinycnn {d}/{name}: {vol.shape}, "
+                                     f"range [{vol.min()}, {vol.max()}]")
+            peaks.append(vol.max())
+    print(f"tinycnn cli --images --preop --survival --blend, 1 epoch: "
+          f"{wall:.1f} s, 0 launches; --inference with Grad-CAM on "
+          f"{len(test_uids)} test patients: {infer_wall:.1f} s (export "
+          f"{counts['export_s'][0]:.2f} s), att_map peaks "
+          f"{min(peaks):.3f}..{max(peaks):.3f}")
+
+    # 3. the LR range test on the flagship model
+    run_dir = workdir / "run_lr"
+    run_dir.mkdir()
+    sweeps = []
+    rc, wall, launches = run_cli(fd, [
+        "--lr_finder", "--images", "--preop", "--survival", "--split",
+        "--config", str(workdir / "config.json"), "--output_path",
+        str(run_dir / "out")], run_dir,
+        [mock.patch.object(lr_finder, "find_lr", recorded(lr_finder.find_lr,
+                                                          sweeps))])
+    lrs, losses = sweeps[0][2]
+    flagship = sum(build_model(parse_config(str(workdir / "config.json")),
+                               True, True, False, False)
+                   .image_model.block_config)
+    best_lr = lrs[int(np.nanargmin(losses))]
+    png = (run_dir / "lr_finder.png").exists()
+    if rc != 0 or len(lrs) != LR_SWEEP_STEPS or len(losses) != LR_SWEEP_STEPS \
+            or np.float32(lrs[0]) != np.float32(1e-7) \
+            or not np.isfinite(best_lr) \
+            or launches != LR_SWEEP_STEPS * flagship \
+            or png != bool(importlib.util.find_spec("matplotlib")):
+        raise AssertionError(f"--lr_finder: rc {rc}, {len(lrs)} rates from "
+                             f"{lrs[:1]}, {len(losses)} losses, min-loss lr "
+                             f"{best_lr}, {launches} launches, png {png}")
+    finite = int(np.isfinite(losses).sum())
+    print(f"cli --lr_finder --images --preop --survival ({CLI_MODEL}): rc "
+          f"{rc}, {wall:.1f} s; {len(lrs)} steps from lr {lrs[0]:.3e} to "
+          f"{lrs[-1]:.3e}, {launches} launches ({flagship} a step); "
+          f"{finite} finite smoothed losses, min-loss lr {best_lr:.3e}; "
+          f"lr_finder.png written: {png}")
+    return {"launches": wide_launches, "per_forward": per_forward,
+            "served": served_launches, "lr_finder": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1958,15 +2474,19 @@ def main(argv=None) -> int:
 
     rows = kernel_phase(fd, args.seed, REPO / "chiprun_out")
     sweep_phase(fd, args.seed, REPO / "chiprun_out")
+    wide = wide_kernel_phase(fd, args.seed, REPO / "chiprun_out")
     with tempfile.TemporaryDirectory() as tmp:
         launches = serve_phase(fd, args.seed, Path(tmp))
     backward = backward_phase(fd, args.seed, REPO / "chiprun_out")
     train_launches = train_phase(fd, args.seed)
     bf16_train = bf16_train_phase(fd, args.seed)
+    families = families_phase(fd, args.seed)
+    remat = remat_phase(fd, args.seed)
     with tempfile.TemporaryDirectory() as tmp:
         cli = cli_phase(fd, args.seed, Path(tmp))
         infer = infer_phase(fd, args.seed, Path(tmp))
         bf16_cli = bf16_cli_phase(fd, args.seed, Path(tmp))
+        wide_cli = wide_cli_phase(fd, args.seed, Path(tmp))
 
     main_path = [r for r in rows if r["batch"] == 8 and r["dtype"] == "float32"]
     bf16_path = [r for r in rows
@@ -2009,6 +2529,24 @@ def main(argv=None) -> int:
         "backward_plain_ms": sum(r["plain_ms"] for r in backward),
         "backward_bound_ms": sum(r["bound_ms"] for r in backward),
         "backward_max_rel_err": max(r["max_rel_err"] for r in backward),
+        # the kernel's launches in one eval forward of each image model
+        # (the families phase; 0 where the model has no bottleneck)
+        "launches_per_forward_by_model": {
+            "densenet121": train_launches // TRAIN_MICRO,
+            **{k: v["per_forward"] for k, v in families.items()}},
+        # TPU.remat: the flagship superstep, each wrapped bottleneck's
+        # forward run again in the backward (8 x (58 + 57))
+        "launches_remat_superstep": remat["launches"],
+        # --lr_finder on the flagship: 100 one-microbatch supersteps x 58
+        "launches_lr_finder": wide_cli["lr_finder"],
+        # the image-only densenet201 CLI run: 2 epochs of 2 supersteps
+        # (8 x 98) and one validation forward (98) each
+        "launches_densenet201_cli_run": wide_cli["launches"],
+        # densenet264's 130 calls at batch 8: the sums as for DenseNet121's
+        "densenet264_ms": wide["float32"]["ms"],
+        "densenet264_plain_ms": wide["float32"]["plain_ms"],
+        "densenet264_bound_ms": wide["float32"]["bound_ms"],
+        "densenet264_gemm_ms": wide["float32"]["gemm_ms"],
     }
     # TPU.compute_dtype bfloat16: the tensor-core kernel. Its 58 calls of one
     # batch-8 forward against the plain op, cuBLAS's product alone and the
@@ -2041,6 +2579,10 @@ def main(argv=None) -> int:
         "launches_per_cli_epoch": bf16_cli["per_epoch"],
         "launches_inference_survival": bf16_cli["inference"],
         "superstep_fused_ms": bf16_train["fused_ms"],
+        "densenet264_ms": wide["bfloat16"]["ms"],
+        "densenet264_plain_ms": wide["bfloat16"]["plain_ms"],
+        "densenet264_bound_ms": wide["bfloat16"]["bound_ms"],
+        "densenet264_gemm_ms": wide["bfloat16"]["gemm_ms"],
     }
     print(json.dumps({"kernels": [entry, bf16_entry]}))
     print(smi)

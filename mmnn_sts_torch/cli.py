@@ -19,9 +19,11 @@ Ported: survival and classification training (``train/loop``) with
 ``--checkpoint_dir`` / ``--resume``; ``--inference`` on the test split
 (``infer/run``: C-indices or F1s, ``--bootstrap`` confidence intervals,
 Grad-CAM attention maps unless ``--no_gradcam``, the prediction CSVs) with
-``Hyperparameters.model_weights``; and ``--export_path`` (the servable of
-``infer/export``). ``--lr_finder`` and ``--segmentation`` raise
-``NotImplementedError`` naming their ROADMAP.md item.
+``Hyperparameters.model_weights``; ``--lr_finder`` (``train/lr_finder``,
+where the JAX CLI runs it: after the split, the standardisation and
+``--resume``); and ``--export_path`` (the servable of ``infer/export``).
+``--segmentation`` raises ``NotImplementedError`` naming its ROADMAP.md
+item.
 """
 
 from __future__ import annotations
@@ -31,7 +33,6 @@ import os
 
 # flag -> (what it runs, the name of its ROADMAP.md Queue 1 item)
 _NOT_PORTED = (
-    ("lr_finder", "the LR range test", "The LR range test"),
     ("segmentation", "segmentation (the JAX package has no loop for it "
                      "either; the cohort builder is)",
      "The segmentation cohort builder"),
@@ -142,6 +143,7 @@ def main(argv=None) -> int:
     from .constants import SUPER_BATCH_SIZE
     from .infer.export import resolve_device
     from .models import build_model
+    from .models.registry import npz_layout
     from .pipeline import (
         TaskFlags,
         load_cohort,
@@ -262,13 +264,19 @@ def main(argv=None) -> int:
         ties=hp.cox_ties,
         eval_chunk=cfg.tpu.eval_chunk_size,
         fused_epoch=cfg.tpu.fused_epoch,
-        npz_layout="fused" if cfg.tpu.use_pallas_fused_dense else "unfused",
+        npz_layout=npz_layout(cfg),
     )
 
     if args.resume and args.checkpoint_dir:
         restored = ckpt_lib.CheckpointManager(args.checkpoint_dir).restore(state)
         if restored is not None:
             logger.info(f"Resumed from step {state.step} (epoch {state.epoch})")
+
+    if args.lr_finder:
+        from .train.lr_finder import find_lr
+
+        find_lr(cfg, flags, bundle, device)
+        return 0
 
     if args.export_path:
         from .infer.export import export_forward, model_spec

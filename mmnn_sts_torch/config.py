@@ -7,8 +7,8 @@ for any other path, so neither a ``Config`` built from the dataclass
 defaults nor a JSON config needs PyYAML (JSON is a subset of YAML, so the
 JAX package's ``parse_config`` reads the same file into the same
 ``Config``). ``validate_config`` also refuses the TPU settings that the
-port does not run: ``remat``, and a mesh of more than one device or with a
-``space`` axis (the port runs on one card).
+port does not run: a mesh of more than one device or with a ``space`` axis
+(the port runs on one card).
 
 Validation: t1t2 modality requires in_channels == 2.
 """
@@ -116,10 +116,11 @@ class HyperparametersConfig:
 class TPUConfig:
     """The JAX package's ``TPU:`` section, read so that one config file
     serves both packages. The port reads ``compute_dtype`` (float32 or
-    bfloat16), ``eval_chunk_size``, ``debug_nans``, ``profile_dir`` and
+    bfloat16), ``eval_chunk_size``, ``debug_nans``, ``profile_dir``,
+    ``remat`` (the DenseNets' ``torch.utils.checkpoint``) and
     ``use_pallas_fused_dense`` (the key layout of the written ``.npz``);
-    of ``device_resident_dataset``, ``fused_epoch``, ``remat``,
-    ``mesh_shape`` and ``mesh_axes`` it runs the one-card defaults only,
+    of ``device_resident_dataset``, ``fused_epoch``, ``mesh_shape`` and
+    ``mesh_axes`` it runs the one-card defaults only,
     and the others raise ``ConfigurationError``. ``microbatch_group`` is
     parsed and not read: it groups microbatches inside the JAX superstep's
     program and changes no result."""
@@ -239,15 +240,9 @@ def validate_config(cfg: Config) -> None:
             f"Unsupported cox_ties: {cfg.hyperparameters.cox_ties} "
             "(options: 'breslow', 'efron')"
         )
-    # what the port parses but does not run: rematerialisation, a mesh of
-    # more than one device (-1 is the one card) and the space axis
+    # what the port parses but does not run: a mesh of more than one
+    # device (-1 is the one card) and the space axis
     tpu = cfg.tpu
-    if tpu.remat:
-        raise ConfigurationError(
-            "TPU.remat is not ported to mmnn_sts_torch yet (ROADMAP.md Queue "
-            "1, 'The remaining model families': remat as "
-            "torch.utils.checkpoint); set it to false"
-        )
     devices = math.prod(1 if n == -1 else n for n in tpu.mesh_shape)
     if devices > 1:
         raise ConfigurationError(

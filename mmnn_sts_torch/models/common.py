@@ -9,7 +9,8 @@ statistics function serves the image and the clinical (N, C) BatchNorms.
 
 Train mode is ``module.training``, as in torch. A ``sample_mask`` (N,) of
 0/1 marks the valid samples of a wrap-padded ragged batch; dropout draws
-from the ``torch.Generator`` its caller passes.
+from the ``torch.Generator`` its caller passes. ``remat_call`` runs a
+layer under ``torch.utils.checkpoint`` for ``TPU.remat``.
 
 ``dtype`` is the compute dtype of ``TPU.compute_dtype``, as flax's ``dtype``
 attribute: None (float32) casts nothing; ``torch.bfloat16`` casts a
@@ -19,7 +20,10 @@ bfloat16. Parameters, BatchNorm statistics and the optimizer stay float32.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
+import threading
+from typing import Sequence
 
 import torch
 from torch import nn
@@ -35,7 +39,8 @@ _TRUNCATED_STD = 0.87962566103423978
 
 
 def kaiming_normal_(w: torch.Tensor, fan_in: int) -> torch.Tensor:
-    """The JAX package's convolution init (common.py:24): N(0, 2 / fan_in)."""
+    """The JAX package's convolution init (common.py:24): N(0, 2 / fan_in).
+    Called with the fan-out, it is ``kaiming_normal_out`` (common.py:27)."""
     with torch.no_grad():
         return w.normal_(0.0, (2.0 / fan_in) ** 0.5)
 
@@ -80,12 +85,21 @@ def compute_batch_stats(x, mask=None):
     return mean, var, unbiased, any_valid
 
 
+# set (on the thread that runs it) while TPU.remat recomputes a layer's
+# forward in the backward pass (``remat_call``): the recompute must not
+# fold its batch statistics in a second time
+_recomputing = threading.local()
+
+
 @torch.no_grad()
 def update_running_stats(running_mean, running_var, mean, unbiased,
                          any_valid=None):
     """In place: ``r = 0.9 r + 0.1 batch``, the running variance from the
     unbiased batch variance (torch's rule); a fully masked batch
-    (``any_valid`` false) leaves both untouched."""
+    (``any_valid`` false) leaves both untouched, and so does a remat
+    recompute."""
+    if getattr(_recomputing, "on", False):
+        return
     m = BN_MOMENTUM
     new_mean = m * running_mean + (1 - m) * mean
     new_var = m * running_var + (1 - m) * unbiased
@@ -94,6 +108,36 @@ def update_running_stats(running_mean, running_var, mean, unbiased,
         new_var = torch.where(any_valid, new_var, running_var)
     running_mean.copy_(new_mean)
     running_var.copy_(new_var)
+
+
+def remat_call(fn, *args, generator: torch.Generator | None = None):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (``TPU.remat``, the
+    JAX package's ``nn.remat``): the backward pass recomputes ``fn``'s
+    forward instead of keeping its activations. The recompute changes no
+    number: it replays ``generator``'s state at the forward (so dropout
+    draws the same masks; the state is restored after it) and folds no
+    batch statistics into the running ones a second time. ``generator``
+    is the one ``fn``'s dropouts draw from, if any."""
+    from torch.utils.checkpoint import checkpoint
+
+    saved = None if generator is None else generator.get_state()
+
+    @contextlib.contextmanager
+    def recompute():
+        now = None if generator is None else generator.get_state()
+        if generator is not None:
+            generator.set_state(saved)
+        before = getattr(_recomputing, "on", False)
+        _recomputing.on = True
+        try:
+            yield
+        finally:
+            _recomputing.on = before
+            if generator is not None:
+                generator.set_state(now)
+
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=lambda: (
+        contextlib.nullcontext(), recompute()))
 
 
 class BatchNorm(nn.Module):
@@ -159,7 +203,10 @@ class Conv3d(nn.Conv3d):
         if self.compute_dtype is None:
             return super().forward(x)
         dt = self.compute_dtype
-        return self._conv_forward(x.to(dt), self.weight.to(dt), None)
+        y = self._conv_forward(x.to(dt), self.weight.to(dt), None)
+        if self.bias is None:
+            return y
+        return y + self.bias.to(dt).view(-1, 1, 1, 1)
 
 
 class Linear(nn.Linear):
@@ -176,24 +223,53 @@ class Linear(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
 
 
-def conv(in_channels: int, out_channels: int, kernel: int, stride: int = 1,
-         padding: int = 0, dtype: torch.dtype | None = None) -> Conv3d:
-    """Bias-free 3D convolution with torch-style integer padding and the
-    JAX package's kaiming-normal fan-in init (its ``conv``,
-    ``use_bias=False``), computing in ``dtype``."""
+def _triple(v) -> tuple[int, int, int]:
+    return (v,) * 3 if isinstance(v, int) else tuple(v)
+
+
+def conv(in_channels: int, out_channels: int, kernel: int | Sequence[int],
+         stride: int | Sequence[int] = 1,
+         padding: int | Sequence[int] | str = 0,
+         dtype: torch.dtype | None = None, use_bias: bool = False,
+         fan_out_init: bool = False) -> Conv3d:
+    """3D convolution as the JAX package's ``conv`` (common.py:215-243),
+    computing in ``dtype``: ``kernel``, ``stride`` and ``padding`` per axis
+    or one for all; an integer padding pads both sides (torch-style), and
+    JAX's ``"VALID"`` (none) and ``"SAME"`` are taken where SAME pads both
+    sides alike (a 1-wide kernel, or stride 1 and an odd kernel: every use
+    in the models). ``use_bias`` adds a zero-initialised bias. The kernel
+    init is kaiming-normal over the fan-in, or over the fan-out with
+    ``fan_out_init`` (``kaiming_normal_out``, common.py:27)."""
+    kernel, stride = _triple(kernel), _triple(stride)
+    if padding == "VALID":
+        padding = 0
+    elif padding == "SAME":
+        if not all(k == 1 or (s == 1 and k % 2)
+                   for k, s in zip(kernel, stride)):
+            raise ValueError(f"SAME padding of kernel {kernel} at stride "
+                             f"{stride} pads one side more than the other")
+        padding = tuple((k - 1) // 2 for k in kernel)
     c = Conv3d(in_channels, out_channels, kernel, stride=stride,
-               padding=padding, bias=False)
-    kaiming_normal_(c.weight, in_channels * kernel ** 3)
+               padding=padding, bias=use_bias)
+    fan = out_channels if fan_out_init else in_channels
+    kaiming_normal_(c.weight, fan * kernel[0] * kernel[1] * kernel[2])
+    if use_bias:
+        nn.init.zeros_(c.bias)
     c.compute_dtype = dtype
     return c
 
 
 def dense(in_features: int, out_features: int,
-          dtype: torch.dtype | None = None) -> Linear:
-    """Linear layer with flax ``Dense``'s init: lecun-normal kernel, zero
-    bias, computing in ``dtype``."""
+          dtype: torch.dtype | None = None,
+          kernel_std: float | None = None) -> Linear:
+    """Linear layer with flax ``Dense``'s init: lecun-normal kernel (or,
+    with ``kernel_std``, ``initializers.normal(kernel_std)``), zero bias,
+    computing in ``dtype``."""
     d = Linear(in_features, out_features)
-    lecun_normal_(d.weight, in_features)
+    if kernel_std is None:
+        lecun_normal_(d.weight, in_features)
+    else:
+        nn.init.normal_(d.weight, 0.0, kernel_std)
     nn.init.zeros_(d.bias)
     d.compute_dtype = dtype
     return d

@@ -1,5 +1,5 @@
-"""3D DenseNet with the custom feature head (counterpart of
-the JAX package's models/densenet.py).
+"""3D DenseNet with the custom feature head or the vanilla one
+(counterpart of the JAX package's models/densenet.py).
 
 * ``DenseLayer``: fused BN -> ReLU -> 1x1x1 conv (the bottleneck, through
   ``ops.fused_dense``) -> BN -> ReLU -> 3x3x3 conv -> channel dropout ->
@@ -7,8 +7,15 @@ the JAX package's models/densenet.py).
 * ``Transition``: BN -> ReLU -> 1x1x1 conv (in // 2) -> avg pool 2.
 * ``DenseNet``: conv0 (7, stride 2, pad 3) -> BN -> ReLU -> max pool
   (3, 2, 1) -> blocks and transitions -> norm5, then the ``features`` head
-  (ReLU -> global average pool -> Linear(feature_channels) -> dropout) and
-  the ``class_layers`` head (Linear(out_channels)).
+  (ReLU -> global average pool -> Linear(feature_channels) -> dropout; with
+  ``feature_channels=None`` the vanilla head, ReLU -> global average pool
+  only, densenet.py:333-339) and the ``class_layers`` head
+  (Linear(out_channels)).
+* ``remat`` (``TPU.remat``): in train mode each dense layer and transition
+  but the Grad-CAM target runs under ``torch.utils.checkpoint``
+  (``common.remat_call``), so the backward recomputes its forward, the
+  bottleneck's kernel launch included (densenet.py:284-307). Numbers do
+  not change.
 
 Train mode is ``module.training``; ``sample_mask`` reaches every BatchNorm
 and the dropouts draw from ``generator``. ``capture_gradcam`` also returns
@@ -43,6 +50,7 @@ from .common import (
     global_avg_pool,
     kaiming_normal_,
     max_pool,
+    remat_call,
     update_running_stats,
 )
 
@@ -124,22 +132,26 @@ class DenseNet(nn.Module):
 
     ``out_channels=None`` builds no ``class_layers`` head: inside the
     multimodal model the image encoder only contributes its features, and
-    the JAX package's encoder then has no ``out`` parameters either."""
+    the JAX package's encoder then has no ``out`` parameters either.
+    ``feature_channels=None`` builds the vanilla head: no ``feature_layer``
+    and no feature dropout, ``out`` over the final channels."""
 
     def __init__(
         self,
         in_channels: int = 2,
         out_channels: int | None = 2,
-        feature_channels: int = 12,
+        feature_channels: int | None = 12,
         init_features: int = 64,
         growth_rate: int = 32,
         block_config: Sequence[int] = (6, 12, 24, 16),
         bn_size: int = 4,
         dropout_prob: float = 0.0,
         dtype: torch.dtype | None = None,
+        remat: bool = False,
     ):
         super().__init__()
         self.block_config = tuple(block_config)
+        self.remat = remat
         self.conv0 = conv(in_channels, init_features, 7, stride=2, padding=3,
                           dtype=dtype)
         self.norm0 = BatchNorm(init_features, dtype)
@@ -156,16 +168,22 @@ class DenseNet(nn.Module):
                 self.add_module(f"transition{i + 1}",
                                 Transition(ch, ch // 2, dtype))
                 ch //= 2
-        self.feature_layer = dense(ch, feature_channels, dtype)
-        self.feature_dropout = Dropout(dropout_prob)
+        self.vanilla = feature_channels is None
+        if not self.vanilla:
+            self.feature_layer = dense(ch, feature_channels, dtype)
+            self.feature_dropout = Dropout(dropout_prob)
+            ch = feature_channels
         if out_channels is not None:
-            self.out = dense(feature_channels, out_channels, dtype)
+            self.out = dense(ch, out_channels, dtype)
 
     def backbone(self, x, sample_mask=None, generator=None, captured=None):
         """x: (N, C, D, H, W) channels-last -> final BN'd feature map. The
         last dense layer appends its Grad-CAM target to ``captured``, where
-        one is given (densenet.py:309-323)."""
+        one is given (densenet.py:309-323). With ``remat`` in train mode
+        every other dense layer and each transition run under
+        ``remat_call``."""
         last = len(self.block_config) - 1
+        remat = self.remat and self.training
         x = max_pool(F.relu(self.norm0(self.conv0(x), sample_mask)), 3, 2, 1)
         for i, num_layers in enumerate(self.block_config):
             # pooling may hand back another memory format; the dense block's
@@ -173,17 +191,27 @@ class DenseNet(nn.Module):
             x = x.contiguous(memory_format=CHANNELS_LAST)
             for j in range(num_layers):
                 target = i == last and j == num_layers - 1
-                x = getattr(self, f"block{i + 1}_layer{j + 1}")(
-                    x, sample_mask, generator, captured if target else None)
+                layer = getattr(self, f"block{i + 1}_layer{j + 1}")
+                if remat and not target:
+                    x = remat_call(layer, x, sample_mask, generator,
+                                   generator=generator)
+                else:
+                    x = layer(x, sample_mask, generator,
+                              captured if target else None)
             if i == last:
                 x = self.norm5(x, sample_mask)
+            elif remat:
+                x = remat_call(getattr(self, f"transition{i + 1}"), x,
+                               sample_mask)
             else:
                 x = getattr(self, f"transition{i + 1}")(x, sample_mask)
         return x
 
     def features(self, x, generator=None):
-        return self.feature_dropout(
-            self.feature_layer(global_avg_pool(F.relu(x))), generator)
+        x = global_avg_pool(F.relu(x))
+        if self.vanilla:
+            return x
+        return self.feature_dropout(self.feature_layer(x), generator)
 
     def class_layers(self, x):
         return self.out(x)
@@ -205,10 +233,10 @@ class DenseNet(nn.Module):
 
 def bottleneck_shapes(model: DenseNet, batch: int, size: int = 64):
     """(block, M, Cin) of each bottleneck call (one ``bn_relu_conv1x1``) of
-    ``model``'s forward on ``batch`` cubes of side ``size``, in call order:
-    Cin is the layer's input channels, M the voxels of its block's feature
-    map (the stem's stride 2 and the max pool's, then a halving per
-    transition)."""
+    ``model``'s forward (any ``block_config``) on ``batch`` cubes of side
+    ``size``, in call order: Cin is the layer's input channels, M the
+    voxels of its block's feature map (the stem's stride 2 and the max
+    pool's, then a halving per transition)."""
     shapes = []
     for i, num_layers in enumerate(model.block_config):
         side = size // 4 >> i
@@ -225,3 +253,17 @@ def densenet121(**kw) -> DenseNet:
 
 def tiny_densenet(**kw) -> DenseNet:
     return DenseNet(block_config=(6, 12, 4), **kw)
+
+
+def densenet169(**kw) -> DenseNet:
+    """The standard blocks with the vanilla head, as the JAX registry
+    builds densenet169, 201 and 264 (registry.py:77-98)."""
+    return DenseNet(block_config=(6, 12, 32, 32), feature_channels=None, **kw)
+
+
+def densenet201(**kw) -> DenseNet:
+    return DenseNet(block_config=(6, 12, 48, 32), feature_channels=None, **kw)
+
+
+def densenet264(**kw) -> DenseNet:
+    return DenseNet(block_config=(6, 12, 64, 48), feature_channels=None, **kw)

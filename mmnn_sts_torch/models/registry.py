@@ -1,12 +1,18 @@
 """Model factory keyed on config names (counterpart of
 the JAX package's models/registry.py).
 
-Ported so far: ``densenet121`` and ``tinydensenet`` image models, their
-multimodal wrapping with the clinical MLP, and the clinical-only MLP, with
-``ImageModel.dropout_prob`` as the JAX registry passes it (registry.py:41;
-the multimodal model's clinical MLP keeps its own 0.2), each in
-``TPU.compute_dtype`` (float32 or bfloat16, registry.py:25-26). Other model
-names raise ``ConfigurationError``; ROADMAP.md lists them as work to come.
+Every image model name of the JAX registry (registry.py:29-111), matched
+by the same prefixes in the same order: ``densenet121``, ``tinydensenet``,
+``tinycnn``, ``monaidensenet`` (DenseNet121's blocks, vanilla head),
+``densenet201``, ``densenet169``, ``densenet264`` (vanilla heads),
+``seresnet50`` and ``r3d_18`` / ``r3d18``, each given exactly the
+arguments the JAX registry gives it (``ImageModel.dropout_prob`` only
+where it passes it; ``TPU.remat`` to the DenseNets), in
+``TPU.compute_dtype`` (float32 or bfloat16). Images with clinical
+predictors build the multimodal model, which only ``tinycnn``,
+``tinydensenet`` and ``densenet121`` may encode (registry.py:22,
+152-157); without images, the clinical MLP. ``spatial_dims`` other than 3
+raises ``ConfigurationError``; ROADMAP.md lists it as work to come.
 """
 
 from __future__ import annotations
@@ -16,16 +22,33 @@ from torch import nn
 
 from ..config import Config
 from ..exceptions import ConfigurationError
-from .densenet import densenet121, tiny_densenet
+from .densenet import (
+    DenseNet, densenet121, densenet169, densenet201, densenet264,
+    tiny_densenet)
 from .mlp import MLP
 from .multimodal import MultiModalModel
+from .resnet3d import ResNet3D18
+from .seresnet import SEResNet50
+from .tinycnn import TinyCNN
 
-_IMAGE_MODELS = {"densenet121": densenet121, "tinydensenet": tiny_densenet}
+_MULTIMODAL_COMPATIBLE = ("tinycnn", "tinydensenet", "densenet121")
+# the names whose JAX model takes TPU.use_pallas_fused_dense (the fused1
+# bottleneck layout); the other DenseNets keep norm1 + conv1
+_PALLAS_MODELS = ("densenet121", "tinydensenet")
 
 
 def compute_dtype(cfg: Config) -> torch.dtype | None:
     """The models' compute dtype: None (float32, no casts) or bfloat16."""
     return torch.bfloat16 if cfg.tpu.compute_dtype == "bfloat16" else None
+
+
+def npz_layout(cfg: Config) -> str:
+    """The bottleneck layout of the JAX model this config builds, in which
+    ``.npz`` files are written: ``"fused"`` where the JAX registry passes
+    ``use_pallas`` and it is set, else ``"unfused"``."""
+    name = cfg.image_model.name.lower()
+    return ("fused" if cfg.tpu.use_pallas_fused_dense
+            and name.startswith(_PALLAS_MODELS) else "unfused")
 
 
 def build_image_model(cfg: Config, class_head: bool = True) -> nn.Module:
@@ -36,20 +59,40 @@ def build_image_model(cfg: Config, class_head: bool = True) -> nn.Module:
     if im.spatial_dims != 3:
         raise ConfigurationError(
             f"spatial_dims {im.spatial_dims} is not ported to mmnn_sts_torch "
-            "yet (see ROADMAP.md)"
+            "yet (ROADMAP.md Queue 1, 'spatial_dims: 2')"
         )
-    for prefix, factory in _IMAGE_MODELS.items():
-        if name.startswith(prefix):
-            return factory(
-                in_channels=im.in_channels,
-                out_channels=im.num_classes if class_head else None,
-                feature_channels=im.feature_layers,
-                dropout_prob=im.dropout_prob,
-                dtype=compute_dtype(cfg),
-            )
+    out = im.num_classes if class_head else None
+    dtype, remat = compute_dtype(cfg), cfg.tpu.remat
+    dense_kw = dict(in_channels=im.in_channels, out_channels=out, dtype=dtype,
+                    remat=remat)
+    if name.startswith("densenet121"):
+        return densenet121(feature_channels=im.feature_layers,
+                           dropout_prob=im.dropout_prob, **dense_kw)
+    if name.startswith("tinydensenet"):
+        return tiny_densenet(feature_channels=im.feature_layers,
+                             dropout_prob=im.dropout_prob, **dense_kw)
+    if name.startswith("tinycnn"):
+        return TinyCNN(in_channels=im.in_channels, out_channels=out,
+                       feature_channels=im.feature_layers,
+                       dropout_prob=im.dropout_prob, dtype=dtype)
+    if name.startswith("monaidensenet"):
+        return DenseNet(feature_channels=None, dropout_prob=im.dropout_prob,
+                        **dense_kw)
+    if name.startswith("densenet201"):
+        return densenet201(**dense_kw)
+    if name.startswith("densenet169"):
+        return densenet169(**dense_kw)
+    if name.startswith("densenet264"):
+        return densenet264(**dense_kw)
+    if name.startswith("seresnet50"):
+        return SEResNet50(in_channels=im.in_channels,
+                          num_classes=im.num_classes, dtype=dtype)
+    if name.startswith(("r3d_18", "r3d18")):
+        return ResNet3D18(in_channels=im.in_channels,
+                          num_classes=im.num_classes, dtype=dtype)
     raise ConfigurationError(
-        f"Model name {name!r} is not ported to mmnn_sts_torch yet "
-        f"(ported: {', '.join(_IMAGE_MODELS)}; see ROADMAP.md)"
+        f"Model name not recognized: {name}\n\tSee config file for valid "
+        "options"
     )
 
 
@@ -85,8 +128,14 @@ def build_model(
             dtype=compute_dtype(cfg),
         )
     if preop or postop:
+        image_model = build_image_model(cfg, class_head=False)
+        if not cfg.image_model.name.lower().startswith(_MULTIMODAL_COMPATIBLE):
+            raise ConfigurationError(
+                "Image models used to build multimodal models must be one of "
+                "'tinycnn', 'tinydensenet' or 'densenet121'"
+            )
         return MultiModalModel(
-            image_model=build_image_model(cfg, class_head=False),
+            image_model=image_model,
             num_clinical_inputs=num_tabular_inputs,
             num_classes=cfg.image_model.num_classes,
             num_features=cfg.image_model.feature_layers,

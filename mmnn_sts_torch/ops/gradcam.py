@@ -1,10 +1,12 @@
 """Grad-CAM 3D attention maps (counterpart of the JAX package's
 ops/gradcam.py:29-90).
 
-* the target is the last convolution of the image encoder: the model's
-  ``capture_gradcam`` path returns it as ``act``, a tensor of the forward's
-  graph, so ``torch.autograd.grad(logit, act)`` is what the JAX package's
-  zero probe gives;
+* the target is the last convolution of the image encoder (a DenseNet's
+  last dense layer's 3x3x3 convolution, TinyCNN's conv5 before its
+  BatchNorm): the model's ``capture_gradcam`` path returns it as ``act``,
+  a tensor of the forward's graph, so ``torch.autograd.grad(logit, act)``
+  is what the JAX package's zero probe gives. SE-ResNet50 and R3D-18 have
+  no such path in the JAX package; theirs raises ``ConfigurationError``;
 * per class c: the gradient of the logit [0, c] (blend: [0, 0, c], the
   multimodal head) with respect to ``act``, pooled per channel over batch
   and space; a fresh copy of ``act`` weighted by it (the reference scales

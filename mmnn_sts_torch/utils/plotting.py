@@ -1,12 +1,13 @@
 """Training-curve artifacts (counterpart of the JAX package's
 utils/plotting.py): train_val_loss.png, train_val_c_score.png (survival),
 train_val_f1.png and the ``LossTracker``'s val_loss_by_cm.png and
-val_loss_by_class.png (classification), and gblend_weights_history.csv.
+val_loss_by_class.png (classification), gblend_weights_history.csv, and
+the LR range test's lr_finder.png (train/lr_finder.py:108-114).
 
 The CSV is written with numpy (``np.savetxt``, the JAX package's format).
 matplotlib is imported inside the PNG writers: on a machine without it the
 PNGs are not drawn and one warning names the missing package, while the
-same curves stay in metrics.jsonl.
+training curves stay in metrics.jsonl.
 """
 
 from __future__ import annotations
@@ -28,8 +29,8 @@ def _pyplot():
         if not _warned:
             _warned.append(True)
             get_logger().warning(
-                "matplotlib is not installed: the training-curve PNGs are "
-                "not drawn (the curves are in metrics.jsonl)")
+                "matplotlib is not installed: the PNG curves are not drawn "
+                "(the training curves are in metrics.jsonl)")
         return None
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
@@ -63,6 +64,21 @@ def save_f1_curves(train_f1s, val_f1s, out_dir="."):
     _save_curves((train_f1s, val_f1s),
                  ("Train F1 Score", "Validation F1 Score"),
                  os.path.join(out_dir, "train_val_f1.png"))
+
+
+def save_lr_finder_curve(lrs, losses, out_dir="."):
+    """lr_finder.png: the smoothed loss against the learning rate, the
+    rate's axis logarithmic."""
+    plt = _pyplot()
+    if plt is None:
+        return
+    plt.figure()
+    plt.plot(lrs, losses)
+    plt.xscale("log")
+    plt.xlabel("learning rate")
+    plt.ylabel("smoothed loss")
+    plt.savefig(os.path.join(out_dir, "lr_finder.png"))
+    plt.close()
 
 
 def save_blend_history(history, out_dir="."):

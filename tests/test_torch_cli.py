@@ -16,8 +16,8 @@ metrics.jsonl rows (kinds, epochs, keys; finite losses, C-indices in
 dtypes that the JAX package loads, and a blend history of the same shape.
 
 Then ``--export_path`` with the trained weights and ``ServingModel`` on the
-CPU; ``--resume`` from ``--checkpoint_dir``; each flag that is not ported
-(``--lr_finder``, ``--segmentation``) raises ``NotImplementedError``; without CUDA and without ``--device cpu``
+CPU; ``--resume`` from ``--checkpoint_dir``; the flag that is not ported
+(``--segmentation``) raises ``NotImplementedError``; without CUDA and without ``--device cpu``
 the CLI raises; a JSON config parses to the same ``Config`` in both
 packages; and ``python -m mmnn_sts_torch`` runs in a subprocess with
 pandas, matplotlib, yaml, jax, flax, optax and the JAX package blocked.
@@ -229,7 +229,7 @@ def test_resume_carries_the_step_on(runs):
     np.testing.assert_array_equal(blend_after[:3], blend_before)
 
 
-@pytest.mark.parametrize("flag", ["--lr_finder", "--segmentation"])
+@pytest.mark.parametrize("flag", ["--segmentation"])
 def test_unported_flags_raise(flag, runs):
     task = [] if flag == "--segmentation" else ["--survival"]
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, '"):

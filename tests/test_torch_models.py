@@ -26,7 +26,7 @@ from mmnn_sts_torch.convert import from_jax_flat, load_jax_npz, to_jax_flat
 from mmnn_sts_torch.exceptions import ConfigurationError
 from mmnn_sts_torch.models import build_model
 from mmnn_sts_torch.models.densenet import (
-    DenseLayer, DenseNet, FusedBottleneck, bottleneck_shapes, densenet121)
+    DenseLayer, DenseNet, FusedBottleneck, bottleneck_shapes)
 from mmnn_sts_torch.models.mlp import MLP
 from mmnn_sts_torch.models.multimodal import MultiModalModel
 from test_torch_convert import NARROW, jax_flat, jax_variables, randomise
@@ -138,25 +138,38 @@ def test_registry_builds_fused_densenets(name, bottlenecks):
 
 def test_chip_smoke_inventory_is_densenet121s_bottlenecks():
     """chip_smoke.py holds the CUDA kernel against its plain version at the
-    (M, Cin) of every DenseNet121 bottleneck (densenet.bottleneck_shapes):
-    those must be what the port's DenseNet121 feeds them, in order (checked
-    at 32^3, half the served side length, to keep the CPU forward small)."""
+    (M, Cin) of every bottleneck (densenet.bottleneck_shapes) of
+    DenseNet121 and of the wider DenseNets it adds (chip_smoke.WIDE_MODELS:
+    densenet169, 201 and 264): those must be what each model feeds them,
+    in order (checked at 32^3, half the served side length, to keep the
+    CPU forward small), 58 / 82 / 98 / 130 calls a forward, with K up to
+    2,656 (densenet264's block 4)."""
     sys.path.insert(0, REPO)
     import chip_smoke
+    from mmnn_sts_torch.models import densenet
 
-    model = densenet121(in_channels=2, out_channels=None).eval()
-    seen = []
-    for mod in model.modules():
-        if isinstance(mod, FusedBottleneck):
-            assert tuple(mod.kernel.shape[1:]) == (chip_smoke.BOTTLENECK_OUT,)
-            mod.register_forward_pre_hook(lambda m, args: seen.append(
-                (args[0].shape[0] * args[0].shape[2:].numel(),
-                 args[0].shape[1])))
-    with torch.no_grad():
-        model(torch.zeros(1, 32, 32, 32, 2), return_features=True)
-    assert seen == [(m, cin) for _, m, cin in
-                    bottleneck_shapes(model, 1, size=32)]
-    assert len(bottleneck_shapes(model, 8)) == 58
+    calls = {"densenet121": 58, "densenet169": 82, "densenet201": 98,
+             "densenet264": 130}
+    assert tuple(chip_smoke.WIDE_MODELS) == tuple(calls)[1:]
+    for name, count in calls.items():
+        model = getattr(densenet, name)(in_channels=2,
+                                        out_channels=None).eval()
+        seen = []
+        for mod in model.modules():
+            if isinstance(mod, FusedBottleneck):
+                assert tuple(mod.kernel.shape[1:]) == \
+                    (chip_smoke.BOTTLENECK_OUT,)
+                mod.register_forward_pre_hook(lambda m, args: seen.append(
+                    (args[0].shape[0] * args[0].shape[2:].numel(),
+                     args[0].shape[1])))
+        with torch.no_grad():
+            model(torch.zeros(1, 32, 32, 32, 2), return_features=True)
+        assert seen == [(m, cin) for _, m, cin in
+                        bottleneck_shapes(model, 1, size=32)], name
+        shapes = bottleneck_shapes(model, 8)
+        assert len(shapes) == count, name
+    assert max(k for _, _, k in shapes) == 2656
+    assert {m for b, m, _ in shapes if b >= 3} == {512, 64}
 
 
 @pytest.mark.parametrize("source", ["defaults", "config.example.yaml"])
@@ -178,8 +191,14 @@ def test_config_copy_reads_like_the_jax_package(source):
 
 
 def test_registry_rejects_what_is_not_ported():
+    """A name no registry knows raises as the JAX registry does, and
+    ``spatial_dims: 2`` (not ported) names its ROADMAP item."""
     cfg = Config()
-    cfg.image_model.name = "seresnet50"
+    cfg.image_model.name = "resnext101"
+    with pytest.raises(ConfigurationError, match="not recognized"):
+        build_model(cfg, images=True, preop=False, postop=False, blend=False)
+    cfg.image_model.name = "densenet121"
+    cfg.image_model.spatial_dims = 2
     with pytest.raises(ConfigurationError, match="ROADMAP"):
         build_model(cfg, images=True, preop=False, postop=False, blend=False)
 
@@ -208,15 +227,14 @@ def test_config_example_builds_the_flagship_in_bf16():
 
 
 @pytest.mark.parametrize("setting,value", [
-    ("remat", True),
     ("mesh_shape", [2]),
     ("mesh_shape", [-1, 4]),
     ("mesh_axes", ["data", "space"]),
 ])
 def test_config_refuses_what_one_card_does_not_run(tmp_path, setting, value):
-    """TPU.remat, a mesh of more than one device and a 'space' axis raise
-    at parse time, naming their ROADMAP item; [-1] and [1] with ['data']
-    (the one card) are accepted."""
+    """A mesh of more than one device and a 'space' axis raise at parse
+    time, naming their ROADMAP item; [-1] and [1] with ['data'] (the one
+    card) are accepted."""
     import json
 
     from mmnn_sts_torch.config import parse_config

@@ -177,8 +177,10 @@ def test_default_device_raises_without_cuda(served, monkeypatch):
 
 
 def test_port_runs_without_jax(served):
-    """Importing the server and running one CPU forward loads neither jax
-    nor the JAX package (a subprocess: this pytest process imports jax)."""
+    """Importing the server and running one CPU forward, then a forward of
+    each new model family without a bottleneck (tinycnn, seresnet50,
+    r3d_18), loads neither jax nor the JAX package (a subprocess: this
+    pytest process imports jax)."""
     _, artifact, _ = served
     script = (
         "import sys, numpy as np\n"
@@ -189,6 +191,17 @@ def test_port_runs_without_jax(served):
         "out = m({'image': rng.random((2, 16, 16, 16, 2), np.float32),\n"
         "         'clinical': rng.random((2, 11), np.float32)})\n"
         "assert out.shape == (2, 2) and np.isfinite(out).all(), out\n"
+        "import torch\n"
+        "from mmnn_sts_torch.config import Config\n"
+        "from mmnn_sts_torch.models import build_model\n"
+        "for name in ('tinycnn', 'seresnet50', 'r3d_18'):\n"
+        "    cfg = Config()\n"
+        "    cfg.image_model.name = name\n"
+        "    with torch.no_grad():\n"
+        "        out = build_model(cfg, True, False, False, False).eval()(\n"
+        "            torch.from_numpy(rng.random((1, 16, 16, 16, 2),\n"
+        "                                        np.float32)))\n"
+        "    assert out.shape == (1, 2) and torch.isfinite(out).all(), name\n"
         "bad = sorted(k for k in sys.modules\n"
         "             if k.split('.')[0] in ('jax', 'jaxlib', 'flax')\n"
         "             or k.startswith('mmnn_sts_tpu'))\n"
