@@ -25,14 +25,13 @@ Phases; any failure is an uncaught exception and a nonzero exit:
    launch cost shows where it exceeds the device's) and the host's time
    to enqueue a call, beside the least time the card could take, and
    each block's share of that bound. Then times every launch plan each
-   kernel takes at every shape of buckets 1, 8 and 32, each checked
-   against the plain version, beside the plan launch_plan picks
+   kernel takes at every shape of bucket 8 (the training microbatch),
+   each checked against the plain version, beside the plan launch_plan picks
    (plan_sweep.jsonl in the output directory). Then the same checks at every
    bottleneck shape of densenet169, densenet201 and densenet264 at batch 8
    (82, 98 and 130 calls, K up to 2,656), in both dtypes; densenet264's 130
    timed per block beside the plain version, the product alone and the
-   bound; and every plan of both kernels where their K exceeds
-   DenseNet121's largest (992): block 3 at M = 512 and block 4 at M = 64.
+   bound.
 4. Serve: the flagship model at full width (DenseNet121-3D at 64^3 x 2ch +
    the 11-feature clinical MLP, blend heads), with weights drawn with numpy
    from --seed in the JAX package's flat key layout (unfused names) and
@@ -69,16 +68,15 @@ Phases; any failure is an uncaught exception and a nonzero exit:
    superstep with a ragged-tail mask: a finite loss and finite gradients.
    Then, with cuDNN's TF32 on (PyTorch's
    default) and dropout 0.2 as configured: a warm-up and 6 timed
-   supersteps (CUDA events; volumes/s, peak memory), one profiled
-   superstep (device busy share, kernel time by kind, the fused kernel's
-   and the backward's shares), two validation steps with their C-indices
-   and two blend updates. The first and the last superstep draw the same
-   dropout masks (the generator is rewound), and the last one's loss on
-   the fixed batch must be below the first's. Then the same superstep with
-   the training augmentation on (augment=True, as the run trains): a
-   warm-up and 6 timed supersteps (volumes/s, peak memory) and one
-   profiled superstep: the augmentation's device ms and launches (its
-   calls run inside a profiler range) and the busy share.
+   supersteps (CUDA events; volumes/s, peak memory), two validation steps
+   with their C-indices and two blend updates. The first and the last
+   superstep draw the same dropout masks (the generator is rewound), and
+   the last one's loss on the fixed batch must be below the first's. Then
+   the same superstep with the training augmentation on (augment=True, as
+   the run trains): a warm-up and 6 timed supersteps (volumes/s, peak
+   memory) and one profiled superstep (device busy share, kernel time by
+   kind, the fused kernel's and the backward's shares, the augmentation's
+   device ms and launches: its calls run inside a profiler range).
 7. Train in bfloat16: the same flagship model with TPU.compute_dtype
    bfloat16 (float32 parameters, compute in bfloat16 at the JAX package's
    cast points), the augmented superstep 8 x 8 at 64^3 with dropout 0.2.
@@ -88,8 +86,8 @@ Phases; any failure is an uncaught exception and a nonzero exit:
    bfloat16 x and w, and the update (new - old over all parameters) with
    the kernel must lie within BF16_CONTROL_FACTOR x the control's relative
    L2 distance of the plain op's. Then a warm-up and 6 timed supersteps
-   (volumes/s, peak memory) and one profiled superstep (busy share,
-   kernel time by kind).
+   (volumes/s, peak memory); the graphed bf16 superstep is profiled in
+   phase 10.
 8. Families: every other image model the registry builds (tinycnn,
    monaidensenet, densenet169, densenet201, densenet264, seresnet50,
    r3d_18), image-only at full width (Config() defaults, 64^3 x 2ch,
@@ -107,7 +105,24 @@ Phases; any failure is an uncaught exception and a nonzero exit:
    1e-2 x max(1, |off|); launches 464 and 920 (every wrapped bottleneck's
    forward runs again in the backward; the Grad-CAM target layer is not
    wrapped); both peak memories and superstep times.
-10. CLI: the survival run as a user starts it, at full width. A synthetic
+10. Fused epochs (TPU.fused_epoch): the flagship superstep (8 x 8 at 64^3,
+   dropout 0.2, the augmentation on, cuDNN's TF32 off) from a resident
+   split of 128 volumes, float32, bfloat16 and float32 with remat. One
+   eager superstep alone (its reserved memory). Then 3 supersteps through
+   survival_train_epoch (graphed: the first is the warm-up, the second is
+   captured and replayed, the third a replay), each beside the same
+   superstep run eagerly three times (CUDA events: the eager volumes/s),
+   all set to the graphed state first (the card's pool backward and
+   cuDNN's weight gradients add with atomics, so eager runs differ): the
+   losses, predictions, parameters, running statistics and momentum
+   within max(1e-5, 4 x the largest distance between two eager runs) x
+   max(1, |eager|) of the nearest eager run, the generator's state and
+   the step equal; the
+   kernel launched 464 times while the superstep is captured (920 with
+   remat), the body bound once. Then 12 replays timed (volumes/s,
+   reserved memory), the capture's seconds, and one replay profiled (busy
+   share, the kernel's device time).
+11. CLI: the survival run as a user starts it, at full width. A synthetic
    cohort written without pandas (the csv module and the port's
    save_nifti): CLI_PATIENTS patients, T1 and T2 NIfTI volumes of
    CLI_VOLUME voxels (squared normals x 500, a mask inside), a clinical CSV
@@ -125,7 +140,7 @@ Phases; any failure is an uncaught exception and a nonzero exit:
    weights, and ServingModel on the card answers a batch-3 request with a
    finite (3, 2). Prints the cohort build's seconds, each epoch's seconds
    and samples/s, the best save's host stall and the artifacts written.
-11. Inference and classification, on the CLI phase's cohort and best
+12. Inference and classification, on the CLI phase's cohort and best
    weights, through mmnn_sts_torch.cli.main at full width: --inference
    --survival --blend with Grad-CAM on the 15 test patients (rc 0, a
    finite survival_model_predictions.csv row a patient, one
@@ -144,7 +159,24 @@ Phases; any failure is an uncaught exception and a nonzero exit:
    58 x (eval steps + patients)). Prints each run's seconds, the Grad-CAM
    export's seconds a patient and attention_maps' CUDA-event ms, the
    classification epochs' seconds and samples/s.
-12. The CLI in bfloat16, on the CLI phase's cohort: a JSON config with
+13. Fused epochs and streaming through the CLI, on the CLI phase's cohort:
+   the CLI phase's eager run once more on volumes scaled by 1 + 2^-22 (the
+   control: how far roundoff alone moves a 3-epoch run), then with "TPU":
+   {"fused_epoch": true} 3 epochs (each superstep, tail and validation
+   forward a replay after epoch 1's warm-ups and epoch 2's captures; the
+   kernel launched 2 x an eager epoch's launches; the losses within
+   max(1e-5, 4 x the control's distance) of the eager run's, the
+   C-indices' distance printed); 2 such epochs with "compute_dtype":
+   "bfloat16" and "remat": true (finite losses, 920 launches per capture
+   of the superstep and the tail); --resume from the float32 run's
+   checkpoint of epoch 2 (epoch 3's dropped; it ends as the uninterrupted
+   run does); its export served; 2 classification epochs against the infer phase's (the
+   losses, against a one-ulp control of their own); the same 2
+   classification epochs with "device_resident_dataset": false (the
+   resident run's losses) and --inference --survival over the host test
+   split in chunks of 8 (the resident inference's predictions within
+   1e-3). Prints each run's seconds an epoch beside the eager run's.
+14. The CLI in bfloat16, on the CLI phase's cohort: a JSON config with
    TPU.compute_dtype bfloat16, 2 epochs (rc 0, finite losses, launches =
    supersteps x 464 + validation forwards x 58, every kernel call with
    bfloat16 x and w, the best .npz loading strictly), the export as a
@@ -153,7 +185,7 @@ Phases; any failure is an uncaught exception and a nonzero exit:
    --inference --survival with Grad-CAM on its test patients (att maps in
    [0, 1] with a max above 0.5, launches = 58 x (eval steps + 2 x
    patients)).
-13. The slice's CLI paths, on the CLI phase's cohort: --images --survival
+15. The slice's CLI paths, on the CLI phase's cohort: --images --survival
    --split with densenet201 for 2 epochs (rc 0, finite losses, launches =
    supersteps x 8 x 98 + validation forwards x 98, the best .npz loading
    strictly), its --export_path served on the card (98 launches, a finite
@@ -162,7 +194,7 @@ Phases; any failure is an uncaught exception and a nonzero exit:
    [0, 1]); --lr_finder --images --preop --survival with the flagship
    config (100 steps, 5,800 launches, lrs[0] = 1e-7 in float32, a finite
    min-loss rate, lr_finder.png only where matplotlib is installed).
-14. Prints the kernels' JSON line, the card's line, and last
+16. Prints the kernels' JSON line, the card's line, and last
    {"ok": true, "device": {...}}.
 
 Per-shape kernel results go to chiprun_out/chip_smoke_kernels.jsonl, the
@@ -177,6 +209,7 @@ import functools
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -199,9 +232,9 @@ BOTTLENECK_OUT = 128  # bn_size 4 x growth 32
 MEASURED_ROUNDS = 5  # timed repeats after one warm-up
 SLEEP_CYCLES = 10_000_000  # ~6 ms at 1.75 GHz: longer than queuing 20 calls
 # the buckets whose DenseNet121 shapes the plan sweep times (of the six;
-# the kernel phase checks all six): the smallest, the training
-# microbatch's and the largest, to keep the script's time in hand
-SWEEP_BUCKETS = (1, 8, 32)
+# the kernel phase checks all six): the training microbatch's, to keep the
+# script's time in hand
+SWEEP_BUCKETS = (8,)
 # how kernel_kinds sorts kernel names into kinds (first match wins)
 PROFILE_KINDS = (
     ("fused_bn_relu_matmul kernel", ("fused_bn_relu_matmul",)),
@@ -232,10 +265,8 @@ BF16_CONTROL_FACTOR = 4.0
 # an epoch, the second ragged), each volume MRI-like in size
 CLI_PATIENTS, CLI_VOLUME, CLI_EPOCHS = 96, (80, 72, 48), 3
 CLI_MODEL, CLI_SIDE, CLI_DEVICE = "densenet121", 64, "cuda"
-# the wider DenseNets whose bottleneck shapes the kernel is checked at; the
-# plans are swept where their K exceeds DenseNet121's largest
+# the wider DenseNets whose bottleneck shapes the kernel is checked at
 WIDE_MODELS = ("densenet169", "densenet201", "densenet264")
-DENSENET121_MAX_K = 992
 # every image model name beyond the flagship's, each driven at full width:
 # an eval forward, an augmented superstep of FAMILY_MICRO x TRAIN_BATCH with
 # the kernel and with the plain op, a bfloat16 eval forward
@@ -245,6 +276,26 @@ FAMILY_MICRO = 2
 # the image-only CLI run of the widest-path slice, and the LR range test's
 # default number of steps
 WIDE_CLI_MODEL, WIDE_CLI_EPOCHS, LR_SWEEP_STEPS = "densenet201", 2, 100
+# TPU.fused_epoch: supersteps held graphed against eager, epochs of that
+# many replays timed after them, the resident split's volumes; (name,
+# compute dtype, remat, augment) of each run;
+# graphed vs eager x max(1, |eager|) per tensor
+FUSED_STEPS, FUSED_TIMED_EPOCHS = 3, 4
+# eager runs of each compared superstep (the first held against, the rest
+# controls), each timed
+FUSED_EAGER = 3
+FUSED_SPLIT = 128
+FUSED_RUNS = (("fp32 + aug", "float32", False, True),
+              ("bf16 + aug", "bfloat16", False, True),
+              ("fp32 remat", "float32", True, True))
+FUSED_TOLERANCE = 1e-5
+# graphed vs eager, where the bits differ and the control's distance is
+# above FUSED_TOLERANCE: within this many times the distance of two eager
+# runs of the same supersteps (the card adds the pools' backward with
+# atomics), as the bf16 phase holds its update
+FUSED_CONTROL_FACTOR = 4.0
+# the streaming --inference's chunk: the 15 test patients in two chunks
+FUSED_CHUNK = 8
 
 
 def bound_ms(m: int, k: int, n: int, dtype: str) -> tuple[float, str]:
@@ -502,9 +553,7 @@ def wide_kernel_phase(fd, seed: int, out_dir: Path) -> dict:
     checked as kernel_phase checks its shapes (check_call), densenet264's
     130 also timed beside the plain version, cuBLAS's product alone and the
     bound. The rows go to ``out_dir``'s chip_smoke_kernels.jsonl with their
-    model's name. Then every plan of both kernels at the shapes whose K
-    exceeds DenseNet121's largest (blocks 3 and 4: M = 512 and 64) goes to
-    plan_sweep.jsonl there. Returns densenet264's sums by dtype."""
+    model's name. Returns densenet264's sums by dtype."""
     from mmnn_sts_torch.models import densenet
 
     n = BOTTLENECK_OUT
@@ -570,14 +619,6 @@ def wide_kernel_phase(fd, seed: int, out_dir: Path) -> dict:
         timed[dtype] = dict(tot, calls=len(rs), bound_by=max(
             ("bytes", "operations"), key=lambda by: sum(
                 r["bound_ms"] for r in rs if r["bound_by"] == by)))
-
-    wide = sorted({(TRAIN_BATCH, r["block"], r["m"], r["cin"]) for r in rows
-                   if r["block"] >= 3 and r["cin"] > DENSENET121_MAX_K})
-    sweep = sweep_rows(fd, gen, wide)
-    with open(out_dir / "plan_sweep.jsonl", "a") as f:
-        f.writelines(json.dumps(dict(r, wide=True)) + "\n" for r in sweep)
-    print_sweep(sweep, f"the wider DenseNets' {len(wide)} shapes with K "
-                f"beyond DenseNet121's {DENSENET121_MAX_K}")
     return timed
 
 
@@ -1025,44 +1066,14 @@ def train_phase(fd, seed: int):
         return out["last"]
 
     # the last timed superstep draws the warm-up's dropout masks
-    ms = timed_supersteps(step_and_keep, volumes, "train superstep",
-                          before_last=lambda: state.generator.set_state(
-                              rewind))
+    timed_supersteps(step_and_keep, volumes, "train superstep",
+                     before_last=lambda: state.generator.set_state(rewind))
     first, last = out["first"], out["last"]
     loss0, loss1 = first["loss"].item(), last["loss"].item()
     print(f"train loss on the fixed batch, same dropout masks: first "
           f"superstep {loss0:.6f}, last {loss1:.6f}")
     if not loss1 < loss0:
         raise AssertionError("the loss on the fixed batch did not fall")
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        superstep(state)
-        torch.cuda.synchronize()
-    kinds = kernel_kinds(prof, float(np.median(ms)),
-                         "train superstep, wall the timed median", top=15)
-    bwd, bwd_mm, bwd_calls = 0.0, 0.0, 0
-    for e in prof.events():  # the Function's backward nodes and their mms
-        if e.name == "FusedBnReluMatmulBackward":
-            bwd_calls += 1
-            bwd += e.device_time_total / 1e3
-            stack = list(e.cpu_children)
-            while stack:
-                c = stack.pop()
-                if c.name == "aten::mm":
-                    bwd_mm += c.device_time_total / 1e3
-                else:
-                    stack.extend(c.cpu_children)
-    if bwd_calls != launched:
-        raise AssertionError(f"the trace holds {bwd_calls} backward calls of "
-                             f"the fused op, not {launched}")
-    busy = kinds["busy"]
-    fused = kinds.get("fused_bn_relu_matmul kernel", 0.0)
-    print(f"train superstep device time: fused kernel {fused:.3f} ms "
-          f"({fused / busy:.1%}); the fused op's backward {bwd:.3f} ms "
-          f"({bwd / busy:.1%}): its two products {bwd_mm:.3f} ms, its "
-          f"elementwise and column-sum pass {bwd - bwd_mm:.3f} ms "
-          f"({(bwd - bwd_mm) / busy:.1%})")
 
     val_after = survival_eval_step(state, *vals, blend=True)
     c_index = c_indices_per_class(val_after["preds"][0].cpu().numpy(),
@@ -1122,11 +1133,33 @@ def train_phase(fd, seed: int):
         torch.cuda.synchronize()
     kinds = kernel_kinds(prof, float(np.median(aug_ms)),
                          "augmented train superstep, wall the timed median",
-                         top=8)
+                         top=15)
     aug_dev, aug_launches, aug_calls = range_totals(prof, "train_augment")
     if aug_calls != TRAIN_MICRO:
         raise AssertionError(f"the trace holds {aug_calls} augmentation "
                              f"calls, not {TRAIN_MICRO}")
+    bwd, bwd_mm, bwd_calls = 0.0, 0.0, 0
+    for e in prof.events():  # the Function's backward nodes and their mms
+        if e.name == "FusedBnReluMatmulBackward":
+            bwd_calls += 1
+            bwd += e.device_time_total / 1e3
+            stack = list(e.cpu_children)
+            while stack:
+                c = stack.pop()
+                if c.name == "aten::mm":
+                    bwd_mm += c.device_time_total / 1e3
+                else:
+                    stack.extend(c.cpu_children)
+    if bwd_calls != launched:
+        raise AssertionError(f"the trace holds {bwd_calls} backward calls of "
+                             f"the fused op, not {launched}")
+    busy = kinds["busy"]
+    fused = kinds.get("fused_bn_relu_matmul kernel", 0.0)
+    print(f"train superstep device time: fused kernel {fused:.3f} ms "
+          f"({fused / busy:.1%}); the fused op's backward {bwd:.3f} ms "
+          f"({bwd / busy:.1%}): its two products {bwd_mm:.3f} ms, its "
+          f"elementwise and column-sum pass {bwd - bwd_mm:.3f} ms "
+          f"({(bwd - bwd_mm) / busy:.1%})")
     print(f"train augmentation in one superstep: {aug_calls} calls (one a "
           f"microbatch of {TRAIN_BATCH}), {aug_launches} kernel launches, "
           f"{aug_dev:.3f} ms device time ({aug_dev / kinds['busy']:.1%} of "
@@ -1284,7 +1317,7 @@ def counted(fn, counts: dict, name: str):
 
 def cli_phase(fd, seed: int, workdir: Path) -> dict:
     """The survival run through the port's CLI at full width (see the
-    module docstring, phase 10). Returns its kernel launches and counts."""
+    module docstring, phase 11). Returns its kernel launches and counts."""
     from mmnn_sts_torch import cli, pipeline
     from mmnn_sts_torch.config import parse_config
     from mmnn_sts_torch.infer.export import ServingModel
@@ -1538,7 +1571,7 @@ def run_cli(fd, args, where: Path, patches) -> tuple[int, float, int]:
 def infer_phase(fd, seed: int, workdir: Path) -> dict:
     """Inference and classification through the port's CLI at full width,
     on the CLI phase's cohort and best weights (see the module docstring,
-    phase 11). Returns the kernel launches of its runs."""
+    phase 12). Returns the kernel launches of its runs."""
     from mmnn_sts_torch.config import parse_config
     from mmnn_sts_torch.data.nifti import load_nifti
     from mmnn_sts_torch.infer import run as infer_run
@@ -1810,7 +1843,6 @@ def bf16_train_phase(fd, seed: int) -> dict:
     from mmnn_sts_torch.train.schedule import make_optimizer
     from mmnn_sts_torch.train.state import create_train_state
     from mmnn_sts_torch.train.steps import survival_train_superstep
-    from torch.profiler import ProfilerActivity, profile
 
     cfg = Config()
     cfg.image_model.name = CLI_MODEL
@@ -1893,18 +1925,11 @@ def bf16_train_phase(fd, seed: int) -> dict:
     dist, ctrl = dists["update"]
 
     state = new_state(2 + TRAIN_TIMED)
-    ms = timed_supersteps(lambda: superstep(state), volumes,
-                          "bf16 train superstep with augmentation")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        superstep(state)
-        torch.cuda.synchronize()
-    kinds = kernel_kinds(prof, float(np.median(ms)),
-                         "bf16 augmented train superstep, wall the timed "
-                         "median", top=10)
+    timed_supersteps(lambda: superstep(state), volumes,
+                     "bf16 train superstep with augmentation")
+    # the graphed bf16 superstep is profiled in fused_epoch_phase
     return {"launches": launched, "update_rel_l2": dist,
-            "control_rel_l2": ctrl, "busy_ms": kinds["busy"],
-            "fused_ms": kinds.get("fused_bn_relu_matmul kernel", 0.0)}
+            "control_rel_l2": ctrl}
 
 
 def deviations(got: dict, want: dict) -> list:
@@ -2128,7 +2153,7 @@ def remat_phase(fd, seed: int) -> dict:
 def bf16_cli_phase(fd, seed: int, workdir: Path) -> dict:
     """The survival run, its export and --inference with TPU.compute_dtype
     bfloat16 on the CLI phase's cohort (see the module docstring, phase
-    12). Returns the kernel launches of its runs."""
+    14). Returns the kernel launches of its runs."""
     from mmnn_sts_torch.config import parse_config
     from mmnn_sts_torch.data.nifti import load_nifti
     from mmnn_sts_torch.infer import run as infer_run
@@ -2268,7 +2293,7 @@ def bf16_cli_phase(fd, seed: int, workdir: Path) -> dict:
 
 def wide_cli_phase(fd, seed: int, workdir: Path) -> dict:
     """The slice's paths through the CLI on the CLI phase's cohort (see the
-    module docstring, phase 13). Returns the kernel launches of its runs."""
+    module docstring, phase 15). Returns the kernel launches of its runs."""
     import importlib.util
 
     from mmnn_sts_torch.config import parse_config
@@ -2433,6 +2458,558 @@ def wide_cli_phase(fd, seed: int, workdir: Path) -> dict:
             "served": served_launches, "lr_finder": launches}
 
 
+def group_diffs(got: dict, want: dict) -> tuple[int, dict]:
+    """(bit-equal tensors, {group: the largest |got - want| / max(1,
+    |want|)}) of two same-keyed dicts; a group is a key's first word
+    (losses, preds, param, buffer, momentum, generator, step)."""
+    equal, worst = 0, {}
+    for name, w in want.items():
+        group = name.split()[0]
+        g = got[name]
+        worst.setdefault(group, 0.0)
+        if torch.equal(g, w):
+            equal += 1
+            continue
+        rel = ((g.float() - w.float()).abs().max().item()
+               / max(1.0, w.float().abs().max().item()))
+        worst[group] = max(worst[group], rel if rel == rel else np.inf)
+    return equal, worst
+
+
+def held_to_control(diffs: dict, control: dict) -> list:
+    """The groups where ``diffs`` exceed max(FUSED_TOLERANCE,
+    FUSED_CONTROL_FACTOR x ``control``); the generator's state and the
+    step must be equal."""
+    return [g for g, d in diffs.items()
+            if not d <= (0.0 if g in ("generator", "step") else max(
+                FUSED_TOLERANCE, FUSED_CONTROL_FACTOR * control[g]))]
+
+
+def state_tensors(state, losses, preds) -> dict:
+    """What a training run leaves: its losses and predictions, every
+    parameter, running statistic and momentum buffer, the generator's
+    state and the step."""
+    out = {"losses": losses, "preds": preds,
+           "generator": state.generator.get_state(),
+           "step": torch.tensor(state.step)}
+    out.update({f"param {n}": p.detach() for n, p in
+                state.model.named_parameters()})
+    out.update({f"buffer {n}": b for n, b in state.model.named_buffers()})
+    out.update({f"momentum {i}": b for i, b in
+                enumerate(state.momentum_buffers())})
+    return out
+
+
+def fused_epoch_phase(fd, seed: int) -> dict:
+    """TPU.fused_epoch's supersteps on the card (see the module docstring,
+    phase 10): graphed against eager from the same state, in float32 and
+    bfloat16 with the augmentation and with remat. Returns the launches
+    per capture, volumes/s and the rest by run."""
+    import gc
+
+    from mmnn_sts_torch.config import Config
+    from mmnn_sts_torch.convert import load_jax_npz, to_jax_flat
+    from mmnn_sts_torch.data.loader import DeviceDataset, gather_superbatch
+    from mmnn_sts_torch.infer.export import model_spec
+    from mmnn_sts_torch.models import build_model
+    from mmnn_sts_torch.train import graphs
+    from mmnn_sts_torch.train.schedule import make_optimizer
+    from mmnn_sts_torch.train.state import create_train_state
+    from mmnn_sts_torch.train.steps import (
+        survival_train_epoch, survival_train_superstep)
+    from torch.profiler import ProfilerActivity, profile
+
+    flags = dict(images=True, preop=True, postop=False, blend=True)
+    base = Config()  # densenet121, 64^3 x 2ch, dropout 0.2, 11 preop
+    base.image_model.name = CLI_MODEL
+    base.image_model.spatial_size = [CLI_SIDE] * 3
+    spec = model_spec(base, **flags)
+    model = build_model(base, **flags)
+    per_forward = sum(model.image_model.block_config)  # 58 in DenseNet121
+    weights = random_flat_weights(model, seed, to_jax_flat)
+    rng = np.random.default_rng(seed + 6)
+    inputs, events, durations = synthetic_split(rng, (FUSED_SPLIT,), spec,
+                                                CLI_DEVICE)
+    ds = DeviceDataset(uids=np.arange(FUSED_SPLIT), inputs=inputs,
+                       events=events, durations=durations)
+    timed = FUSED_STEPS * FUSED_TIMED_EPOCHS
+    rows = FUSED_STEPS + timed + 1  # compared, timed, profiled
+    idx = np.stack([rng.permutation(FUSED_SPLIT)[:TRAIN_MICRO * TRAIN_BATCH]
+                    .reshape(TRAIN_MICRO, TRAIN_BATCH) for _ in range(rows)])
+    volumes = TRAIN_MICRO * TRAIN_BATCH
+    tf32, torch.backends.cudnn.allow_tf32 = \
+        torch.backends.cudnn.allow_tf32, False
+    print(f"fused epoch: superstep {TRAIN_MICRO} x {TRAIN_BATCH} at "
+          f"{base.image_model.spatial_size[0]}^3 from a resident split of "
+          f"{FUSED_SPLIT} volumes, dropout {base.image_model.dropout_prob}, "
+          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}; graphed "
+          f"(survival_train_epoch, one superstep a call) against eager "
+          f"(survival_train_superstep) run {FUSED_EAGER} times (the first "
+          f"held against, the others its controls), each set to the "
+          f"graphed state before each superstep")
+
+    def new_state(cfg):
+        model = build_model(cfg, **flags)
+        load_jax_npz(model, weights)
+        model.to(CLI_DEVICE)
+        state = create_train_state(model, *make_optimizer(
+            model.parameters(), TRAIN_LR, rows, 1), seed=seed)
+        # every superstep's rate: a grown table is bound again
+        state.ensure_rates(rows)
+        return state
+
+    def set_to(dst, src):
+        """``dst`` takes ``src``'s weights, statistics, momentum,
+        generator state and step, in place."""
+        dst.model.load_state_dict(src.model.state_dict())
+        for a, b in zip(dst.momentum_buffers(), src.momentum_buffers()):
+            a.copy_(b)
+        dst.generator.set_state(src.generator.get_state())
+        dst.step = src.step
+
+    def eager_step(state, s, augment):
+        batch = gather_superbatch(ds, idx[s])
+        return survival_train_superstep(
+            state, batch["inputs"], batch["events"], batch["durations"],
+            blend=True, augment=augment)
+
+    replays = []
+    real_run = graphs.BoundBody.run
+
+    def timed_run(self):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real_run(self)
+        end.record()
+        if self.last == "replay":
+            replays.append((start, end))
+        return out
+
+    def rate(pairs):
+        torch.cuda.synchronize()
+        ms = np.array([a.elapsed_time(b) for a, b in pairs])
+        return float(np.median(volumes * 1e3 / ms)), float(np.median(ms))
+
+    def epoch(state, s, augment):
+        return survival_train_epoch(state, ds, idx[s:s + 1], blend=True,
+                                    augment=augment)
+
+    results = {}
+    for name, dtype, remat, augment in FUSED_RUNS:
+        cfg = copy.deepcopy(base)
+        cfg.tpu.compute_dtype = dtype
+        cfg.tpu.remat = remat
+        # eager alone: one superstep, the peak of the caching allocator's
+        # reserved memory (a graph's private pool is reserved, and not
+        # allocated between replays)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        eager = new_state(cfg)
+        eager_step(eager, 0, augment)
+        torch.cuda.synchronize()
+        eager_peak = torch.cuda.max_memory_reserved()
+        del eager
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # graphed against eager, superstep by superstep from one state: the
+        # first superstep is the warm-up, the second is captured and
+        # replayed, the rest are replays
+        # eager[0] is held against; eager[1:] are the controls
+        graphed, *eager = (new_state(cfg) for _ in range(1 + FUSED_EAGER))
+        worst, noise, equal, total, pairs = {}, {}, 0, 0, []
+        fd.fused_bn_relu_matmul.launches = 0
+        with mock.patch.object(graphs.BoundBody, "run", timed_run):
+            for s in range(FUSED_STEPS):
+                for other in eager:
+                    set_to(other, graphed)
+                out = epoch(graphed, s, augment)
+                runs = []
+                for st in eager:
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    aux = eager_step(st, s, augment)
+                    end.record()
+                    pairs.append((start, end))
+                    runs.append(state_tensors(st, aux["loss"][None],
+                                              aux["preds"][None]))
+                got = state_tensors(graphed, out["loss"], out["preds"])
+                # graphed against the nearest eager run: any of them is
+                # the eager result, and they differ by the atomics alone
+                diffs = [group_diffs(got, run) for run in runs]
+                equal, total = equal + diffs[0][0], total + len(got)
+                worst = {g: max(worst.get(g, 0.0),
+                                min(d[1][g] for d in diffs))
+                         for g in diffs[0][1]}
+                # every pair of eager runs: one pair alone can be close
+                # by chance
+                for i, a in enumerate(runs):
+                    for b in runs[i + 1:]:
+                        n = group_diffs(b, a)[1]
+                        noise = {g: max(noise.get(g, 0.0), d)
+                                 for g, d in n.items()}
+            del eager, runs, got, out
+            eager_rate = rate(pairs)
+            gc.collect()
+            torch.cuda.empty_cache()
+            (steps,) = (v for v in graphed.graphs.values()
+                        if isinstance(v, graphs.EpochSteps))
+            step = steps.graphs["step"]
+            per_capture = step.launches_per_capture
+            # remat runs each wrapped bottleneck's forward again, all but
+            # the Grad-CAM target's
+            expected = TRAIN_MICRO * (2 * per_forward - 1 if remat
+                                      else per_forward)
+            if CLI_DEVICE != "cuda":  # nothing is captured on the CPU
+                per_capture = expected
+            bad = held_to_control(worst, noise)
+            if bad or per_capture != expected or step.binds != 1:
+                raise AssertionError(
+                    f"fused epoch {name}: graphed vs eager {worst}, eager vs "
+                    f"eager {noise}: beyond the limit in {bad}; "
+                    f"{per_capture} launches per capture, not {expected}; "
+                    f"bound {step.binds} times")
+            # the replays alone: timed, the reserved memory, one profiled
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            del replays[:]
+            for s in range(FUSED_STEPS, FUSED_STEPS + timed):
+                epoch(graphed, s, augment)
+            graph_rate = rate(replays)
+            graph_peak = torch.cuda.max_memory_reserved()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                epoch(graphed, rows - 1, augment)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+        kinds = kernel_kinds(prof, wall, f"fused epoch {name}: one graphed "
+                             f"superstep", top=5)
+        results[name] = {
+            "launches_per_capture": per_capture,
+            "replays": step.replays, "binds": step.binds,
+            "capture_s": step.capture_seconds,
+            "eager_volumes_s": eager_rate[0], "eager_ms": eager_rate[1],
+            "graphed_volumes_s": graph_rate[0], "graphed_ms": graph_rate[1],
+            "eager_peak_gib": eager_peak / 2**30,
+            "graphed_peak_gib": graph_peak / 2**30,
+            "busy": kinds["busy"] / wall, "max_rel_diff": max(worst.values()),
+            "fused_kernel_ms": kinds.get("fused_bn_relu_matmul kernel", 0.0),
+            "control_max_rel_diff": max(noise.values())}
+        r = results[name]
+        print(f"fused epoch {name}: {FUSED_STEPS} supersteps (the warm-up, "
+              f"the capture, a replay), each from the graphed state: "
+              f"{equal} of {total} tensors (losses, predictions, parameters, "
+              f"running statistics, momentum, the generator's state, the "
+              f"step) bit-equal to the first eager run; the largest "
+              f"|graphed - eager| / max(1, |eager|), the nearest of the "
+              f"eager runs, by group "
+              + ", ".join(f"{g} {d:.2e}" for g, d in worst.items())
+              + f"; eager vs eager (the control, {FUSED_EAGER} runs) "
+              + ", ".join(f"{g} {d:.2e}" for g, d in noise.items())
+              + f" (limit max({FUSED_TOLERANCE:.0e}, "
+              f"{FUSED_CONTROL_FACTOR:g} x control); the generator and step "
+              f"equal); fused kernel launches {per_capture} per capture of "
+              f"the superstep, {step.replays} replays; capture "
+              f"{r['capture_s']:.2f} s; eager {r['eager_volumes_s']:.1f} "
+              f"volumes/s ({r['eager_ms']:.1f} ms, median of {len(pairs)} "
+              f"eager supersteps above), "
+              f"graphed {r['graphed_volumes_s']:.1f} volumes/s "
+              f"({r['graphed_ms']:.1f} ms, median of {timed} replays); "
+              f"max_memory_reserved eager {r['eager_peak_gib']:.2f} GiB, "
+              f"graphed {r['graphed_peak_gib']:.2f} GiB (the state, the split "
+              f"and the graph's pool); graphed busy "
+              f"{r['busy']:.1%}")
+        del graphed, steps, step, prof
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = tf32
+    return results
+
+
+def rows_diff(got: list, want: list, keys) -> float:
+    """The largest |got - want| / max(1, |want|) over ``keys`` of two runs'
+    metrics.jsonl rows (inf where their epochs differ)."""
+    if [r["epoch"] for r in got] != [r["epoch"] for r in want]:
+        return np.inf
+    worst = 0.0
+    for g, w in zip(got, want):
+        for k in keys:
+            if g[k] != w[k]:
+                worst = max(worst, abs(g[k] - w[k]) / max(1.0, abs(w[k])))
+    return worst if worst == worst else np.inf
+
+
+def check_rows(got: list, want: list, keys, control: float,
+               what: str) -> float:
+    """``rows_diff`` of two runs, raised beyond max(FUSED_TOLERANCE,
+    FUSED_CONTROL_FACTOR x ``control``), the distance of two eager runs."""
+    worst = rows_diff(got, want, keys)
+    limit = max(FUSED_TOLERANCE, FUSED_CONTROL_FACTOR * control)
+    if not worst <= limit:
+        raise AssertionError(f"{what}: {worst:.3e} beyond {limit:.3e}; "
+                             f"{got} vs {want}")
+    return worst
+
+
+def fused_cli_phase(fd, seed: int, workdir: Path, per_epoch: int) -> dict:
+    """TPU.fused_epoch and TPU.device_resident_dataset: false through the
+    CLI on the CLI phase's cohort (see the module docstring, phase 13),
+    held against the CLI and infer phases' eager runs. ``per_epoch``: the
+    eager run's launches an epoch."""
+    from mmnn_sts_torch import pipeline
+    from mmnn_sts_torch.infer.export import ServingModel
+    from mmnn_sts_torch.train import checkpoint, graphs
+
+    base = json.loads((workdir / "config.json").read_text())
+
+    def config(name, tpu, extra=None):
+        cfg = copy.deepcopy(extra or base)
+        cfg["TPU"] = {**cfg.get("TPU", {}), **tpu}
+        path = workdir / name
+        path.write_text(json.dumps(cfg))
+        return path
+
+    def rows(out: Path) -> list:
+        return [json.loads(x) for x in (out / "metrics.jsonl").read_text()
+                .splitlines()]
+
+    fused = config("fused.json", {"fused_epoch": True})
+    surv = ["--images", "--preop", "--survival", "--blend", "--split",
+            "--blend_update_interval", "1", "--epochs", str(CLI_EPOCHS)]
+    # the losses are held; the C-indices (a pair's order flips at
+    # roundoff) are printed
+    keys = ("train_loss", "val_loss", "selection_loss")
+    eager_rows = rows(workdir / "run" / "out")[:CLI_EPOCHS]
+    bodies = []
+    real_run = graphs.BoundBody.run
+
+    def spy(self):
+        out = real_run(self)
+        bodies.append((self.name, self.last, self.launches_per_capture))
+        return out
+
+    # 0. the control: the CLI phase's eager run with every volume scaled by
+    # 1 + 2^-22 (one ulp): how far roundoff alone moves a 3-epoch run. The
+    # graphs may round differently from eager kernels (each superstep
+    # alone is held in fused_epoch_phase), and the loop amplifies any
+    # difference (ROADMAP.md Queue 3, roundoff amplification)
+    real_build = pipeline.build_device_dataset
+
+    def one_ulp(uids, device, image_volumes=None, **kw):
+        return real_build(uids, device, image_volumes=None
+                          if image_volumes is None else image_volumes
+                          * np.float32(1 + 2**-22), **kw)
+
+    def control(name, args, want):
+        where = workdir / name
+        where.mkdir()
+        rc, _, _ = run_cli(fd, args + ["--config", str(workdir /
+                                                      "config.json"),
+                                       "--output_path", str(where / "out")],
+                           where, [mock.patch.object(
+                               pipeline, "build_device_dataset", one_ulp)])
+        if rc != 0:
+            raise AssertionError(f"the control run {name} returned {rc}")
+        return rows(where / "out")
+
+    noise = rows_diff(control("eager_ulp", surv, eager_rows), eager_rows,
+                      keys)
+    print(f"fused cli control: the eager CLI run on volumes x (1 + 2^-22), "
+          f"metrics vs the CLI phase's: largest |Δ| / max(1, |x|) "
+          f"{noise:.3e} (cudnn.allow_tf32={torch.backends.cudnn.allow_tf32})")
+
+    # 1. the survival run, each superstep a graph replay after the first
+    # epoch's warm-ups and the second's captures
+    run_dir = workdir / "fused"
+    run_dir.mkdir()
+    rc, wall, launches = run_cli(
+        fd, surv + ["--config", str(fused), "--output_path",
+                    str(run_dir / "out"), "--checkpoint_dir",
+                    str(run_dir / "ck")], run_dir,
+        [mock.patch.object(graphs.BoundBody, "run", spy)])
+    got = rows(run_dir / "out")
+    worst = check_rows(got, eager_rows, keys, noise, "fused CLI vs eager")
+    seen = {}
+    for name, last, per_capture in bodies:
+        seen.setdefault(name, []).append((last, per_capture))
+    # on the card: warm-ups and captures launch through the wrapper,
+    # replays do not (a CPU rehearsal runs every body eagerly)
+    card = CLI_DEVICE == "cuda"
+    first, later = ("warm-up", "replay") if card else ("eager", "eager")
+    runs = {k: [x[0] for x in v] for k, v in seen.items()}
+    if rc != 0 or any(v != [first] + [later] * (len(v) - 1)
+                      for v in runs.values()) \
+            or len(runs.get("tail step", [])) != CLI_EPOCHS \
+            or len(runs.get("validation forward", [])) != CLI_EPOCHS \
+            or launches != (2 if card else CLI_EPOCHS) * per_epoch:
+        raise AssertionError(f"fused CLI: rc {rc}, bodies {seen}, launches "
+                             f"{launches} (2 x {per_epoch} expected)")
+    captures = {k: v[-1][1] for k, v in seen.items()}
+    print(f"fused cli: rc {rc}, {wall:.1f} s; every superstep one replay "
+          f"after epoch 1 (warm-ups) and epoch 2 (captures, then replays): "
+          f"{ {k: len(v) for k, v in seen.items()} } runs, fused kernel "
+          f"launches per capture {captures}; {launches} launches in the run "
+          f"(eager: {CLI_EPOCHS} x {per_epoch}); losses vs the eager CLI "
+          f"run: largest |Δ| / max(1, |eager|) {worst:.3e} (limit max("
+          f"{FUSED_TOLERANCE:.0e}, {FUSED_CONTROL_FACTOR:g} x control)); "
+          f"C-indices {rows_diff(got, eager_rows, ('train_c', 'val_c')):.3e}")
+    for g, w in zip(got, eager_rows):
+        print(f"  epoch {g['epoch']}: fused {g['epoch_seconds']:.2f} s, "
+              f"eager {w['epoch_seconds']:.2f} s (host clock); train loss "
+              f"{g['train_loss']:.6f} vs {w['train_loss']:.6f}")
+
+    # 1b. the same in bfloat16 with TPU.remat, 2 epochs: the bf16 kernel
+    # and the remat recompute inside the CLI's graphs
+    both = config("fused_bf16_remat.json", {
+        "fused_epoch": True, "compute_dtype": "bfloat16", "remat": True})
+    both_dir = workdir / "fused_bf16_remat"
+    both_dir.mkdir()
+    del bodies[:]
+    args = [a if a != str(CLI_EPOCHS) else "2" for a in surv]
+    rc, wall, both_launches = run_cli(
+        fd, args + ["--config", str(both), "--output_path",
+                    str(both_dir / "out")], both_dir,
+        [mock.patch.object(graphs.BoundBody, "run", spy)])
+    both_rows = rows(both_dir / "out")
+    both_capture = {name: per_capture for name, _, per_capture in bodies
+                    if per_capture is not None}
+    want = {"step step": TRAIN_MICRO * 115, "tail step": TRAIN_MICRO * 115,
+            "validation forward": 58} if card else {}
+    if rc != 0 or len(both_rows) != 2 or not all(
+            np.isfinite([r[k] for k in keys]).all() for r in both_rows) \
+            or both_capture != want:
+        raise AssertionError(f"fused bf16 remat CLI: rc {rc}, rows "
+                             f"{both_rows}, launches per capture "
+                             f"{both_capture}")
+    print(f"fused cli, bfloat16 with remat: rc {rc}, {wall:.1f} s, "
+          f"{both_launches} launches, per capture {both_capture}; "
+          + "; ".join(f"epoch {r['epoch']} {r['epoch_seconds']:.2f} s, "
+                      f"train loss {r['train_loss']:.6f}"
+                      for r in both_rows))
+
+    # 2. --resume from run 1's checkpoint of epoch 2 (its epoch 3 dropped,
+    # as if the run had stopped there): ends as run 1 does
+    resume_dir = workdir / "fused_resume"
+    shutil.copytree(run_dir / "ck", resume_dir / "ck")
+    index_path = resume_dir / "ck" / "index.json"
+    index = json.loads(index_path.read_text())
+    del index[str(CLI_EPOCHS)]
+    index_path.write_text(json.dumps(index))
+    last = f"ckpt_{CLI_EPOCHS:08d}.pt"
+    (resume_dir / "ck" / last).unlink()
+    rc, _, _ = run_cli(fd, surv + ["--config", str(fused), "--output_path",
+                                   str(resume_dir / "out"),
+                                   "--checkpoint_dir", str(resume_dir / "ck"),
+                                   "--resume"], resume_dir, [])
+    resumed = rows(resume_dir / "out")
+    worst_resume = check_rows(resumed, got[-1:], keys, noise, "fused resume")
+    a = torch.load(run_dir / "ck" / last, weights_only=True)["model"]
+    b = torch.load(resume_dir / "ck" / last, weights_only=True)["model"]
+    equal = sum(torch.equal(a[k], b[k]) for k in a)
+    if rc != 0:
+        raise AssertionError(f"fused resume: rc {rc}")
+    print(f"fused cli --resume from epoch {CLI_EPOCHS - 1}'s checkpoint: "
+          f"epoch {CLI_EPOCHS} ends as the uninterrupted run does (losses "
+          f"within {worst_resume:.1e}; {equal} of {len(a)} tensors of the "
+          f"last checkpoint bit-equal)")
+
+    # 3. its export, served
+    trained = copy.deepcopy(base)
+    trained["Hyperparameters"]["model_weights"] = str(
+        run_dir / "out" / "best_surv_model.npz")
+    trained = config("fused_trained.json", {"fused_epoch": True}, trained)
+    artifact = workdir / "fused_model.pt"
+    rc, wall, _ = run_cli(fd, ["--images", "--preop", "--survival",
+                               "--blend", "--split", "--config", str(trained),
+                               "--export_path", str(artifact)], run_dir, [])
+    rng = np.random.default_rng(seed + 7)
+    answer = ServingModel(str(artifact), device=CLI_DEVICE)({
+        "image": (rng.normal(size=(3,) + (CLI_SIDE,) * 3 + (2,)) ** 2 * 500
+                  ).astype(np.float32),
+        "clinical": rng.normal(size=(3, 11)).astype(np.float32)})
+    if rc != 0 or answer.shape != (3, 2) or not np.isfinite(answer).all():
+        raise AssertionError(f"fused export: rc {rc}, answer {answer}")
+    print(f"fused cli export: {wall:.1f} s in process; served batch 3: "
+          f"{answer.tolist()}")
+
+    # 4. classification, 2 epochs, against the infer phase's eager run and
+    # its one-ulp control; the F1s are thresholds of the logits, so the
+    # losses are held
+    class_args = ["--images", "--preop", "--classification", "--blend",
+                  "--split", "--epochs", "2", "--blend_update_interval", "1"]
+    eager_class = rows(workdir / "run_class" / "out")
+    class_keys = ("train_loss", "val_loss")
+    class_noise = rows_diff(control("eager_class_ulp", class_args,
+                                    eager_class), eager_class, class_keys)
+    class_dir = workdir / "fused_class"
+    class_dir.mkdir()
+    rc, wall, launches = run_cli(
+        fd, class_args + ["--config", str(fused), "--output_path",
+                          str(class_dir / "out")], class_dir, [])
+    if rc != 0:
+        raise AssertionError(f"fused classification: rc {rc}")
+    class_rows = rows(class_dir / "out")
+    worst_class = check_rows(class_rows, eager_class, class_keys,
+                             class_noise, "fused classification vs eager")
+    print(f"fused cli classification: rc {rc}, {wall:.1f} s, {launches} "
+          f"launches; losses vs the eager run within {worst_class:.3e} "
+          f"(the one-ulp control {class_noise:.3e}); "
+          + "; ".join(f"epoch {r['epoch']} {r['epoch_seconds']:.2f} s"
+                      for r in class_rows))
+
+    # 5. streaming from the host: 2 classification epochs, the eager run's
+    # losses
+    stream = config("stream.json", {"device_resident_dataset": False})
+    stream_dir = workdir / "stream"
+    stream_dir.mkdir()
+    rc, wall, launches = run_cli(
+        fd, class_args + ["--config", str(stream), "--output_path",
+                          str(stream_dir / "out")], stream_dir, [])
+    stream_rows = rows(stream_dir / "out")
+    worst_stream = check_rows(stream_rows, eager_class, class_keys,
+                              class_noise, "streaming CLI vs resident")
+    if rc != 0:
+        raise AssertionError(f"streaming CLI: rc {rc}")
+    print(f"stream cli (device_resident_dataset false), --classification: "
+          f"rc {rc}, {wall:.1f} s, {launches} launches; losses vs the "
+          f"resident run within {worst_stream:.3e}; "
+          + "; ".join(f"epoch {r['epoch']} {r['epoch_seconds']:.2f} s "
+                      f"(resident {w['epoch_seconds']:.2f})"
+                      for r, w in zip(stream_rows, eager_class)))
+
+    # 6. --inference over the host test split in chunks
+    infer_cfg = json.loads((workdir / "infer.json").read_text())
+    infer_stream = config("infer_stream.json", {
+        "device_resident_dataset": False, "eval_chunk_size": FUSED_CHUNK},
+        infer_cfg)
+    out = workdir / "infer_stream"
+    rc, wall, launches = run_cli(
+        fd, ["--inference", "--images", "--preop", "--survival", "--blend",
+             "--config", str(infer_stream), "--output_path", str(out)],
+        workdir / "run", [])
+    _, got_preds = read_csv_rows(out / "survival_model_predictions.csv")
+    _, want_preds = read_csv_rows(workdir / "infer_survival" /
+                                  "survival_model_predictions.csv")
+    diff = np.abs(got_preds - want_preds).max() / max(
+        1.0, np.abs(want_preds).max())
+    if rc != 0 or got_preds.shape != want_preds.shape or not diff <= 1e-3:
+        raise AssertionError(f"streaming inference: rc {rc}, "
+                             f"{got_preds.shape}, max rel diff {diff}")
+    print(f"stream cli --inference: rc {rc}, {wall:.1f} s, {launches} "
+          f"launches, chunks of {FUSED_CHUNK} from the host; predictions vs "
+          f"the resident inference (whole split, cudnn.allow_tf32="
+          f"{torch.backends.cudnn.allow_tf32}): max |Δ| / max(1, |x|) "
+          f"{diff:.2e} (limit 1e-3)")
+    return {"per_capture": captures,
+            "epoch_s": [r["epoch_seconds"] for r in got],
+            "eager_epoch_s": [r["epoch_seconds"] for r in eager_rows],
+            "stream_epoch_s": [r["epoch_seconds"] for r in stream_rows]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2472,21 +3049,47 @@ def main(argv=None) -> int:
         if log.exists():
             print(log.read_text().strip())
 
+    last = [time.perf_counter()]
+
+    def lap(name: str):
+        """Print the host seconds since the previous lap."""
+        now = time.perf_counter()
+        print(f"{name}: {now - last[0]:.1f} s")
+        last[0] = now
+
     rows = kernel_phase(fd, args.seed, REPO / "chiprun_out")
+    lap("kernel_phase")
     sweep_phase(fd, args.seed, REPO / "chiprun_out")
+    lap("sweep_phase")
     wide = wide_kernel_phase(fd, args.seed, REPO / "chiprun_out")
+    lap("wide_kernel_phase")
     with tempfile.TemporaryDirectory() as tmp:
         launches = serve_phase(fd, args.seed, Path(tmp))
+    lap("serve_phase")
     backward = backward_phase(fd, args.seed, REPO / "chiprun_out")
+    lap("backward_phase")
     train_launches = train_phase(fd, args.seed)
+    lap("train_phase")
     bf16_train = bf16_train_phase(fd, args.seed)
+    lap("bf16_train_phase")
     families = families_phase(fd, args.seed)
+    lap("families_phase")
     remat = remat_phase(fd, args.seed)
+    lap("remat_phase")
+    fused = fused_epoch_phase(fd, args.seed)
+    lap("fused_epoch_phase")
     with tempfile.TemporaryDirectory() as tmp:
         cli = cli_phase(fd, args.seed, Path(tmp))
+        lap("cli_phase")
         infer = infer_phase(fd, args.seed, Path(tmp))
+        lap("infer_phase")
+        fused_cli = fused_cli_phase(fd, args.seed, Path(tmp),
+                                    cli["per_epoch"])
+        lap("fused_cli_phase")
         bf16_cli = bf16_cli_phase(fd, args.seed, Path(tmp))
+        lap("bf16_cli_phase")
         wide_cli = wide_cli_phase(fd, args.seed, Path(tmp))
+        lap("wide_cli_phase")
 
     main_path = [r for r in rows if r["batch"] == 8 and r["dtype"] == "float32"]
     bf16_path = [r for r in rows
@@ -2547,6 +3150,17 @@ def main(argv=None) -> int:
         "densenet264_plain_ms": wide["float32"]["plain_ms"],
         "densenet264_bound_ms": wide["float32"]["bound_ms"],
         "densenet264_gemm_ms": wide["float32"]["gemm_ms"],
+        # TPU.fused_epoch: the launches the wrapper counts while a CUDA
+        # graph of the flagship superstep is captured (its replays launch
+        # the same kernels without the wrapper), with augmentation and
+        # with remat, and the replays timed; the fused CLI run's step,
+        # tail and validation graphs
+        "launches_per_capture_superstep":
+            fused["fp32 + aug"]["launches_per_capture"],
+        "launches_per_capture_remat_superstep":
+            fused["fp32 remat"]["launches_per_capture"],
+        "replays_timed_superstep": fused["fp32 + aug"]["replays"],
+        "launches_per_capture_cli": fused_cli["per_capture"],
     }
     # TPU.compute_dtype bfloat16: the tensor-core kernel. Its 58 calls of one
     # batch-8 forward against the plain op, cuBLAS's product alone and the
@@ -2578,11 +3192,15 @@ def main(argv=None) -> int:
         "launches_per_superstep": bf16_train["launches"],
         "launches_per_cli_epoch": bf16_cli["per_epoch"],
         "launches_inference_survival": bf16_cli["inference"],
-        "superstep_fused_ms": bf16_train["fused_ms"],
+        # the kernel's 464 calls in one graphed bf16 superstep
+        "superstep_fused_ms": fused["bf16 + aug"]["fused_kernel_ms"],
         "densenet264_ms": wide["bfloat16"]["ms"],
         "densenet264_plain_ms": wide["bfloat16"]["plain_ms"],
         "densenet264_bound_ms": wide["bfloat16"]["bound_ms"],
         "densenet264_gemm_ms": wide["bfloat16"]["gemm_ms"],
+        "launches_per_capture_superstep":
+            fused["bf16 + aug"]["launches_per_capture"],
+        "replays_timed_superstep": fused["bf16 + aug"]["replays"],
     }
     print(json.dumps({"kernels": [entry, bf16_entry]}))
     print(smi)

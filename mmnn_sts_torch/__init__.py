@@ -14,7 +14,9 @@ through ``python -m mmnn_sts_torch`` (``cli``): the cohort build
 the device-resident loader, the superstep (``train/steps``: train-mode
 BatchNorm, dropout, the blended Cox loss, SGD-nesterov with OneCycle), the
 epoch loop with validation, checkpoints and blend updates (``train/loop``,
-``train/checkpoint``); inference with bootstrap intervals and Grad-CAM
+``train/checkpoint``), with ``TPU.fused_epoch`` each step a CUDA graph
+replay (``train/graphs``) and with ``TPU.device_resident_dataset: false``
+the splits streamed from host memory (``data/streaming``); inference with bootstrap intervals and Grad-CAM
 (``infer/run``); the LR range test (``train/lr_finder``); and the serving
 path (export + HTTP server). Every image model the JAX registry builds
 (``models/registry``: the DenseNets, TinyCNN, SE-ResNet50, R3D-18) and the

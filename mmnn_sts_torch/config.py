@@ -117,10 +117,12 @@ class TPUConfig:
     """The JAX package's ``TPU:`` section, read so that one config file
     serves both packages. The port reads ``compute_dtype`` (float32 or
     bfloat16), ``eval_chunk_size``, ``debug_nans``, ``profile_dir``,
-    ``remat`` (the DenseNets' ``torch.utils.checkpoint``) and
-    ``use_pallas_fused_dense`` (the key layout of the written ``.npz``);
-    of ``device_resident_dataset``, ``fused_epoch``, ``mesh_shape`` and
-    ``mesh_axes`` it runs the one-card defaults only,
+    ``remat`` (the DenseNets' ``torch.utils.checkpoint``),
+    ``use_pallas_fused_dense`` (the key layout of the written ``.npz``),
+    ``fused_epoch`` (each training step one CUDA graph replay,
+    ``train/graphs.py``) and ``device_resident_dataset`` (false: the splits
+    stay in host memory and stream to the card, ``data/streaming.py``); of
+    ``mesh_shape`` and ``mesh_axes`` it runs the one-card defaults only,
     and the others raise ``ConfigurationError``. ``microbatch_group`` is
     parsed and not read: it groups microbatches inside the JAX superstep's
     program and changes no result."""

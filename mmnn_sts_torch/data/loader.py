@@ -148,14 +148,17 @@ class EpochBatcher:
 
 def gather_superbatch(ds: DeviceDataset, idx: np.ndarray) -> dict:
     """One (A, B, ...) super-batch (or (B, ...) batch) gathered from the
-    device-resident split by ``index_select``: {"inputs", and "labels",
-    "events", "durations" where present}."""
+    split by ``index_select``: {"inputs", and "labels", "events",
+    "durations" where present}, on ``ds.device`` (a host-resident split,
+    ``data/streaming.HostDataset``, is gathered on the host and copied)."""
     shape = tuple(idx.shape)
+    held = next(iter(ds.inputs.values())).device
     flat = torch.as_tensor(np.asarray(idx, dtype=np.int64).reshape(-1)).to(
-        ds.device)
+        held)
 
     def take(x):
-        return x.index_select(0, flat).view(shape + tuple(x.shape[1:]))
+        return x.index_select(0, flat).view(
+            shape + tuple(x.shape[1:])).to(ds.device)
 
     inputs = ds.model_inputs()
     out = {"inputs": ({k: take(v) for k, v in inputs.items()}

@@ -18,6 +18,10 @@ intervals, the Grad-CAM attention maps and the prediction CSVs
   ``attention_maps/``: ``_patient_{uid}`` for survival (with that patient's
   own forward in preds.txt), ``{correct}_{labels}_{preds}__patient_{uid}``
   for classification (with its probabilities).
+
+A host-resident test split (``TPU.device_resident_dataset: false``) is
+forwarded in chunks, each copied to the card alone (``train/evaluate``),
+and Grad-CAM copies one patient at a time.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import torch
 from ..constants import NUM_BOOTSTRAP_ITERATIONS
 from ..data.loader import DeviceDataset
 from ..data.nifti import save_attention_maps
+from ..data.streaming import HostDataset, to_device
 from ..ops.augment import eval_transform_batch
 from ..ops.gradcam import attention_maps
 from ..ops.metrics import (
@@ -97,7 +102,8 @@ def inference_survival(state, ds: DeviceDataset, cfg: InferenceConfig):
         counts = bootstrap_counts(ds.num_samples, NUM_BOOTSTRAP_ITERATIONS,
                                   cfg.seed)
         cs, adms = bootstrap_cindices(
-            torch.as_tensor(preds).to(ds.device), ds.events, ds.durations,
+            torch.as_tensor(preds).to(ds.device), ds.events.to(ds.device),
+            ds.durations.to(ds.device),
             torch.as_tensor(counts).to(ds.device))
         cs, adms = cs.cpu().numpy(), adms.cpu().numpy()
         cs = cs[(adms > 0).all(axis=1)]  # a degenerate class voids it
@@ -150,6 +156,8 @@ def export_attention_maps(state, ds: DeviceDataset, cfg: InferenceConfig,
 
     for i, uid in enumerate(ds.uids):
         inputs = ds.model_inputs(idx=slice(i, i + 1))
+        if isinstance(ds, HostDataset):
+            inputs = to_device(ds, {"inputs": inputs})["inputs"]
         if isinstance(inputs, dict):
             inputs = {**inputs, "image": eval_transform_batch(inputs["image"])}
             image = inputs["image"]

@@ -10,7 +10,8 @@ statistics function serves the image and the clinical (N, C) BatchNorms.
 Train mode is ``module.training``, as in torch. A ``sample_mask`` (N,) of
 0/1 marks the valid samples of a wrap-padded ragged batch; dropout draws
 from the ``torch.Generator`` its caller passes. ``remat_call`` runs a
-layer under ``torch.utils.checkpoint`` for ``TPU.remat``.
+layer under ``torch.utils.checkpoint`` for ``TPU.remat``; its recompute
+reuses the forward's dropout draws, so it also runs inside a CUDA graph.
 
 ``dtype`` is the compute dtype of ``TPU.compute_dtype``, as flax's ``dtype``
 attribute: None (float32) casts nothing; ``torch.bfloat16`` casts a
@@ -89,6 +90,24 @@ def compute_batch_stats(x, mask=None):
 # forward in the backward pass (``remat_call``): the recompute must not
 # fold its batch statistics in a second time
 _recomputing = threading.local()
+# the uniform draws of the dropouts inside a remat region: recorded by the
+# forward (``record``, a list), replayed by the recompute (``replay``, an
+# iterator), per thread
+_draws = threading.local()
+
+
+def dropout_uniforms(shape, generator, device) -> torch.Tensor:
+    """``torch.rand(shape)`` from ``generator``: the dropout masks' draws.
+    Inside ``remat_call``'s recompute the forward's draws come back in
+    order instead, and nothing is drawn."""
+    replay = getattr(_draws, "replay", None)
+    if replay is not None:
+        return next(replay)
+    u = torch.rand(shape, generator=generator, device=device)
+    record = getattr(_draws, "record", None)
+    if record is not None:
+        record.append(u)
+    return u
 
 
 @torch.no_grad()
@@ -114,30 +133,49 @@ def remat_call(fn, *args, generator: torch.Generator | None = None):
     """``fn(*args)`` under ``torch.utils.checkpoint`` (``TPU.remat``, the
     JAX package's ``nn.remat``): the backward pass recomputes ``fn``'s
     forward instead of keeping its activations. The recompute changes no
-    number: it replays ``generator``'s state at the forward (so dropout
-    draws the same masks; the state is restored after it) and folds no
-    batch statistics into the running ones a second time. ``generator``
-    is the one ``fn``'s dropouts draw from, if any."""
+    number: its dropouts take the forward's uniform draws again (recorded
+    by ``dropout_uniforms``, a (B, C) tensor a layer), so ``generator``
+    ends where the unwrapped model leaves it, and it folds no batch
+    statistics into the running ones a second time. ``generator`` is the
+    one ``fn``'s dropouts draw from, if any; without it the recompute
+    draws anew.
+
+    The recompute touches no generator state, so it is the same inside a
+    CUDA graph capture (``train/graphs.py``), where a generator's state can
+    be neither read nor set: an offset drawn inside a capture is baked
+    into the graph and no graph-safe state swap rewinds it. torch's own
+    stash of the default generators is kept outside a capture only (the
+    port's dropouts and augmentation draw from explicit generators)."""
     from torch.utils.checkpoint import checkpoint
 
-    saved = None if generator is None else generator.get_state()
+    draws = [] if generator is not None else None
 
     @contextlib.contextmanager
-    def recompute():
-        now = None if generator is None else generator.get_state()
-        if generator is not None:
-            generator.set_state(saved)
-        before = getattr(_recomputing, "on", False)
-        _recomputing.on = True
+    def forward():
+        before = getattr(_draws, "record", None)
+        _draws.record = draws
         try:
             yield
         finally:
-            _recomputing.on = before
-            if generator is not None:
-                generator.set_state(now)
+            _draws.record = before
 
-    return checkpoint(fn, *args, use_reentrant=False, context_fn=lambda: (
-        contextlib.nullcontext(), recompute()))
+    @contextlib.contextmanager
+    def recompute():
+        before = (getattr(_recomputing, "on", False),
+                  getattr(_draws, "replay", None))
+        _recomputing.on = True
+        _draws.replay = None if draws is None else iter(draws)
+        try:
+            yield
+        finally:
+            _recomputing.on, _draws.replay = before
+
+    first = args[0]
+    capturing = (isinstance(first, torch.Tensor) and first.is_cuda
+                 and torch.cuda.is_current_stream_capturing())
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=not capturing,
+                      context_fn=lambda: (forward(), recompute()))
 
 
 class BatchNorm(nn.Module):
@@ -188,8 +226,7 @@ class Dropout(nn.Module):
         if not self.training or self.p == 0.0:
             return x
         shape = x.shape[:2] + (1,) * (x.dim() - 2) if self.channels else x.shape
-        keep = torch.rand(shape, generator=generator, device=x.device) \
-            < 1.0 - self.p
+        keep = dropout_uniforms(shape, generator, x.device) < 1.0 - self.p
         return x * (keep.to(x.dtype) / (1.0 - self.p))
 
 

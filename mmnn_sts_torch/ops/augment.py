@@ -108,7 +108,7 @@ def spatial_transform(img, theta, flip_axis, zoom):
     _, _, d, h, w = img.shape
     dev, f32 = img.device, torch.float32
     c0, c1, c2 = (d - 1) / 2.0, (h - 1) / 2.0, (w - 1) / 2.0
-    half_pi = torch.tensor(math.pi / 2.0, dtype=f32, device=dev)
+    half_pi = torch.full((), math.pi / 2.0, dtype=f32, device=dev)
     k = torch.round(theta / half_pi)
     residual = theta - k * half_pi
     img = _rot90(img, torch.remainder(k.long(), 4))

@@ -79,6 +79,17 @@ def class_elementwise_losses(preds, targets, pos_weight=None):
     return bce_with_logits(preds, targets, pos_weight, reduction="none")
 
 
+def assign_blend(state: BlendState, new: BlendState) -> BlendState:
+    """Copy ``new`` into ``state``'s tensors in place and return ``state``:
+    a captured CUDA graph (``train/graphs.py``) reads the tensors it saw at
+    the capture, so an update must not replace them."""
+    state.weights.copy_(new.weights)
+    state.lvn.copy_(new.lvn)
+    state.ltn.copy_(new.ltn)
+    state.has_history = new.has_history
+    return state
+
+
 def blend_update(state: BlendState, train_loss, val_loss,
                  survival: bool) -> BlendState:
     """The weight update from (K,) per-head epoch losses: softmax of

@@ -88,7 +88,7 @@ def cox_ph_loss_efron(log_h, events, durations, eps: float = 1e-7,
     l_i = cum_ev - start_off_ev - 1.0  # rank of this event in its group
     frac = torch.where(d_group > 0, l_i / torch.clamp(d_group, min=1.0), 0.0)
     denom = torch.log(torch.maximum(s_r - frac * s_d,
-                                    s_r.new_tensor(eps))) + gamma
+                                    s_r.new_full((), eps))) + gamma
     pll = ((lh - denom) * ev).sum(0)
     return -pll / torch.clamp(ev.sum(0), min=1.0)
 

@@ -6,9 +6,9 @@ intersection of their UIDs, split by UID lists (loaded or freshly
 stratified) and placed on one device once per split. Every target comes
 from the one cleaned clinical table.
 
-Device-resident only: ``TPU.device_resident_dataset: false`` (the JAX
-package's host-resident streaming) raises ``ConfigurationError`` (ROADMAP.md
-Queue 1, 'Streaming').
+With ``TPU.device_resident_dataset: false`` a split stays in host memory
+instead (``data/streaming.HostDataset``, pinned for the card) and its
+batches are streamed to the device (pipeline.py:214-231).
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ import numpy as np
 from .config import Config, get_image_path
 from .data.images import ImageCohort, build_image_cohort
 from .data.loader import build_device_dataset
+from .data.streaming import build_host_dataset
 from .data.radiomics import load_radiomics
 from .data.split import stratified_split
 from .data.tabular import ClinicalArrays, load_clinical_arrays
@@ -167,14 +168,10 @@ def make_split_dataset(
     uids,
     device=None,
 ):
-    """The device-resident dataset of one UID list (those in the cohort),
-    on ``device`` (default: the card; raises without one)."""
-    if not cfg.tpu.device_resident_dataset:
-        raise ConfigurationError(
-            "TPU.device_resident_dataset: false (host-resident streaming) is "
-            "not ported to mmnn_sts_torch yet (ROADMAP.md Queue 1, "
-            "'Streaming')"
-        )
+    """The dataset of one UID list (those in the cohort) for ``device``
+    (default: the card; raises without one): device-resident, or with
+    ``TPU.device_resident_dataset: false`` a ``HostDataset`` whose batches
+    go to ``device``."""
     device = resolve_device(device)
     cohort = set(int(x) for x in bundle.uids)
     uids = np.asarray([int(u) for u in uids if int(u) in cohort],
@@ -205,7 +202,9 @@ def make_split_dataset(
         img_order = {int(u): i for i, u in enumerate(bundle.images.uids)}
         volumes = bundle.images.volumes[[img_order[int(u)] for u in uids]]
 
-    return build_device_dataset(
+    build = (build_device_dataset if cfg.tpu.device_resident_dataset
+             else build_host_dataset)
+    return build(
         uids,
         device,
         image_volumes=volumes,

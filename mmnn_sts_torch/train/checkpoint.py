@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from ..convert import _port_entry, load_jax_npz, to_jax_flat
-from ..ops.blending import BlendState
+from ..ops.blending import BlendState, assign_blend
 from ..utils.logging import get_logger
 
 
@@ -169,11 +169,10 @@ def _state_blob(state) -> dict:
 def _load_state_blob(state, blob: dict):
     state.model.load_state_dict(blob["model"], strict=True)
     state.optimizer.load_state_dict(blob["optimizer"])
-    device = state.blend.weights.device
     b = blob["blend"]
-    state.blend = BlendState(weights=b["weights"].to(device),
-                             lvn=b["lvn"].to(device), ltn=b["ltn"].to(device),
-                             has_history=bool(b["has_history"]))
+    assign_blend(state.blend, BlendState(
+        weights=b["weights"], lvn=b["lvn"], ltn=b["ltn"],
+        has_history=bool(b["has_history"])))
     state.step, state.epoch = int(blob["step"]), int(blob["epoch"])
     state.generator.set_state(blob["generator"])
     return state

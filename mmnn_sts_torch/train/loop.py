@@ -34,9 +34,18 @@ the blend history so far, so a resumed run writes them whole. (The JAX
 package checkpoints only the improving epochs and always starts at
 epoch 0.)
 
-``TPU.fused_epoch`` (an XLA whole-epoch program in the JAX package) has no
-counterpart yet (ROADMAP.md Queue 1, 'Fused epochs as CUDA graphs') and raises
-``ConfigurationError``.
+The path of an epoch is the JAX loop's (loop.py:146-231): with
+``fused_epoch`` (``TPU.fused_epoch``) and a resident train split the epoch
+runs through ``survival_train_epoch`` / ``classification_train_epoch``,
+each step a CUDA graph replay on the card, with the validation forward
+fused in (``with_val``) when the validation split is resident and no
+``eval_chunk`` is asked for; otherwise one step at a time, from a resident
+split by ``gather_superbatch`` or from a host split
+(``TPU.device_resident_dataset: false``) by ``prefetched_epoch``.
+Validation runs every ``val_interval`` epochs; a blend update in an epoch
+without validation first recomputes the validation predictions against the
+current weights (loop.py:146-153, 353-362). The blend update is copied into
+the state's tensors in place, since a captured graph reads them.
 """
 
 from __future__ import annotations
@@ -50,7 +59,7 @@ import torch
 
 from ..constants import SUPER_BATCH_SIZE
 from ..data.loader import DeviceDataset, EpochBatcher, gather_superbatch
-from ..exceptions import ConfigurationError
+from ..data.streaming import HostDataset, prefetched_epoch
 from ..ops import blending
 from ..ops.losses import pos_weight_from_frequencies
 from ..ops.metrics import c_indices_per_class, thresholded_f1s
@@ -64,7 +73,12 @@ from ..utils.plotting import (
 )
 from . import checkpoint as ckpt_lib
 from .evaluate import classification_eval_split, survival_eval_split
-from .steps import classification_train_step, survival_train_superstep
+from .steps import (
+    classification_train_epoch,
+    classification_train_step,
+    survival_train_epoch,
+    survival_train_superstep,
+)
 
 logger = get_logger()
 
@@ -78,15 +92,17 @@ class LoopConfig:
     blend_update_interval: int = 5
     seed: int = 42
     output_dir: str = "."
+    val_interval: int = 1
     augment: bool = True
     checkpoint_dir: str = ""
     save_params_name: str = ""
     metrics_path: str = "metrics.jsonl"
     profile_dir: str = ""
     ties: str = "breslow"  # Cox tie handling: "breslow" | "efron"
-    # validation forward chunk size; 0 = the whole split at once
+    # validation forward chunk size; 0 = auto (the whole split when it is
+    # device-resident, DEFAULT_EVAL_CHUNK when it streams from the host)
     eval_chunk: int = 0
-    # whole epoch as one program (TPU.fused_epoch): not ported
+    # each step of an epoch one CUDA graph replay (TPU.fused_epoch)
     fused_epoch: bool = False
     # bottleneck key layout of the written .npz ("unfused" | "fused")
     npz_layout: str = "unfused"
@@ -122,12 +138,30 @@ def _c_indices(preds, events, durations):
         return [float("nan")] * preds.shape[1]
 
 
-def _refuse_fused_epoch(cfg: LoopConfig):
-    if cfg.fused_epoch:
-        raise ConfigurationError(
-            "TPU.fused_epoch (the whole epoch as one program) is not ported "
-            "to mmnn_sts_torch yet (ROADMAP.md Queue 1, 'Fused epochs as "
-            "CUDA graphs'); set it to false")
+def _epoch_batches(ds, batcher: EpochBatcher, epoch: int):
+    """One epoch's batches on the device: gathered from a resident split,
+    prefetched from a host one."""
+    if isinstance(ds, HostDataset):
+        yield from prefetched_epoch(ds, batcher, epoch)
+    else:
+        for idx in batcher.epoch_indices(epoch):
+            yield gather_superbatch(ds, idx)
+
+
+def _fused_paths(train_ds, val_ds, cfg: LoopConfig) -> tuple[bool, bool]:
+    """(use_fused, fuse_val) as the JAX loop decides them."""
+    use_fused = not isinstance(train_ds, HostDataset) and cfg.fused_epoch
+    fuse_val = (use_fused and not isinstance(val_ds, HostDataset)
+                and not cfg.eval_chunk)
+    return use_fused, fuse_val
+
+
+def _epoch_rows(batcher: EpochBatcher, epoch: int):
+    """(full steps' indices, the ragged tail's or None) of an epoch."""
+    order = batcher.epoch_indices(epoch)
+    if batcher.ragged:
+        return order[:-1], order[-1]
+    return order, None
 
 
 def _on_device(a, device):
@@ -136,11 +170,11 @@ def _on_device(a, device):
 
 def train_survival(
     state,
-    train_ds: DeviceDataset,
-    val_ds: DeviceDataset,
+    train_ds: DeviceDataset | HostDataset,
+    val_ds: DeviceDataset | HostDataset,
     cfg: LoopConfig,
 ) -> TrainResult:
-    _refuse_fused_epoch(cfg)
+    use_fused, fuse_val = _fused_paths(train_ds, val_ds, cfg)
     accum = max(1, cfg.super_batch // cfg.batch_size)
     batcher = EpochBatcher(
         train_ds.num_samples, cfg.batch_size, accum, seed=cfg.seed,
@@ -166,6 +200,9 @@ def train_survival(
     train_losses, val_losses = history["train_loss"], history["val_loss"]
     train_cs, val_cs = history["train_c"], history["val_c"]
     blend_history = history["blend"]
+    # the validation predictions a blend update reads, and their epoch:
+    # with val_interval > 1 they may be stale and are then recomputed
+    val_preds, val_preds_epoch = None, -1
 
     # host copies of the targets: epoch statistics gather from these
     host_events = train_ds.events.cpu().numpy()
@@ -179,6 +216,8 @@ def train_survival(
         if batcher.ragged else None
     )
     steps_total = batcher.steps_per_epoch()
+    # the whole run's rates: a graph reads the table it was captured with
+    state.ensure_rates(cfg.epochs * steps_total)
 
     for epoch in range(first_epoch, cfg.epochs):
         logger.info("-" * 10)
@@ -192,20 +231,37 @@ def train_survival(
             profiler.__enter__()
 
         epoch_t0 = time.perf_counter()
-        order = batcher.epoch_indices(epoch)
-        step_losses, step_preds = [], []
-        for s, idx in enumerate(order):
-            batch = gather_superbatch(train_ds, idx)
-            aux = survival_train_superstep(
-                state, batch["inputs"], batch["events"], batch["durations"],
-                blend=cfg.blend, augment=cfg.augment, ties=cfg.ties,
-                mask=tail_mask if s == steps_total - 1 else None,
-            )
-            step_losses.append(aux["loss"])
-            step_preds.append(aux["preds"])
-        # one read-back per epoch
-        epoch_loss = torch.stack(step_losses).sum().item()
-        preds_host = torch.stack(step_preds).float().cpu().numpy()
+        do_val = (epoch + 1) % cfg.val_interval == 0
+        val_out = None
+        if use_fused:
+            idx, tail_idx = _epoch_rows(batcher, epoch)
+            out = survival_train_epoch(
+                state, train_ds, idx, tail_idx, tail_mask,
+                val_ds=val_ds if fuse_val else None, blend=cfg.blend,
+                augment=cfg.augment, ties=cfg.ties,
+                with_val=fuse_val and do_val)
+            # one read-back per epoch
+            epoch_loss = out["loss"].sum().item()
+            preds_host = out["preds"].float().cpu().numpy()
+            if fuse_val and do_val:
+                val_out = {"preds": out["val_preds"].float().cpu().numpy(),
+                           "loss": out["val_loss"].item(),
+                           "selection_loss": out["val_selection"].item()}
+        else:
+            step_losses, step_preds = [], []
+            for s, batch in enumerate(_epoch_batches(train_ds, batcher,
+                                                     epoch)):
+                aux = survival_train_superstep(
+                    state, batch["inputs"], batch["events"],
+                    batch["durations"], blend=cfg.blend,
+                    augment=cfg.augment, ties=cfg.ties,
+                    mask=tail_mask if s == steps_total - 1 else None,
+                )
+                step_losses.append(aux["loss"])
+                step_preds.append(aux["preds"])
+            # one read-back per epoch
+            epoch_loss = torch.stack(step_losses).sum().item()
+            preds_host = torch.stack(step_preds).float().cpu().numpy()
 
         if profiler is not None:
             profiler.__exit__(None, None, None)
@@ -213,7 +269,7 @@ def train_survival(
             profiler.export_chrome_trace(
                 os.path.join(cfg.profile_dir, f"epoch{epoch + 1}.json"))
 
-        flat_order = order.reshape(-1)
+        flat_order = batcher.epoch_indices(epoch).reshape(-1)
         epoch_samples = int(flat_order.size)
         train_preds = _dedup_epoch(
             _flatten_epoch_preds(preds_host, cfg.blend), n_unique, cfg.blend)
@@ -231,47 +287,57 @@ def train_survival(
             f"({epoch_samples / max(epoch_dt, 1e-9):.1f} samples/s)"
         )
 
-        out = survival_eval_split(state, val_ds, blend=cfg.blend,
-                                  ties=cfg.ties, chunk=cfg.eval_chunk)
-        val_preds = out["preds"]
-        v_head0 = val_preds[0] if cfg.blend else val_preds
-        c_indices = _c_indices(v_head0, val_events, val_durations)
-        mean_c = float(np.mean(c_indices))
-        val_cs.append(mean_c)
-        val_loss = out["loss"] / val_ds.num_samples
-        val_losses.append(val_loss)
-        selection_loss = out["selection_loss"]
-        logger.info(f"All C-indexes: {c_indices}")
-        logger.info(f"Mean C-index: {mean_c}")
-        logger.info(f"validation loss: {val_loss}")
+        selection_loss = None
+        if do_val:
+            out = val_out if val_out is not None else survival_eval_split(
+                state, val_ds, blend=cfg.blend, ties=cfg.ties,
+                chunk=cfg.eval_chunk)
+            val_preds, val_preds_epoch = out["preds"], epoch
+            v_head0 = val_preds[0] if cfg.blend else val_preds
+            c_indices = _c_indices(v_head0, val_events, val_durations)
+            mean_c = float(np.mean(c_indices))
+            val_cs.append(mean_c)
+            val_loss = out["loss"] / val_ds.num_samples
+            val_losses.append(val_loss)
+            selection_loss = out["selection_loss"]
+            logger.info(f"All C-indexes: {c_indices}")
+            logger.info(f"Mean C-index: {mean_c}")
+            logger.info(f"validation loss: {val_loss}")
 
-        if selection_loss < best_loss:
-            best_loss = selection_loss
-            best_epoch = epoch + 1
-            best_c_indices = c_indices
-            if cfg.save_params_name:
-                npz_saver.submit(
-                    os.path.join(cfg.output_dir, cfg.save_params_name),
-                    state.model)
-            logger.info("saved new best metric model")
-        logger.info(
-            f"current epoch: {epoch + 1} current loss: {selection_loss:.4f}"
-            f" best loss: {best_loss:.4f} at epoch: {best_epoch}"
-            f" best c_indices: {best_c_indices}"
-        )
-        metrics.write(
-            kind="survival_epoch",
-            epoch=epoch + 1,
-            train_loss=epoch_loss,
-            val_loss=val_loss,
-            train_c=train_cs[-1],
-            val_c=mean_c,
-            selection_loss=selection_loss,
-            epoch_seconds=epoch_dt,
-            samples_per_sec=epoch_samples / max(epoch_dt, 1e-9),
-        )
+            if selection_loss < best_loss:
+                best_loss = selection_loss
+                best_epoch = epoch + 1
+                best_c_indices = c_indices
+                if cfg.save_params_name:
+                    npz_saver.submit(
+                        os.path.join(cfg.output_dir, cfg.save_params_name),
+                        state.model)
+                logger.info("saved new best metric model")
+            logger.info(
+                f"current epoch: {epoch + 1} current loss: "
+                f"{selection_loss:.4f} best loss: {best_loss:.4f} at epoch: "
+                f"{best_epoch} best c_indices: {best_c_indices}"
+            )
+            metrics.write(
+                kind="survival_epoch",
+                epoch=epoch + 1,
+                train_loss=epoch_loss,
+                val_loss=val_loss,
+                train_c=train_cs[-1],
+                val_c=mean_c,
+                selection_loss=selection_loss,
+                epoch_seconds=epoch_dt,
+                samples_per_sec=epoch_samples / max(epoch_dt, 1e-9),
+            )
 
         if cfg.blend and (epoch + 1) % cfg.blend_update_interval == 0:
+            if val_preds is None or val_preds_epoch != epoch:
+                # no validation this epoch: the kept predictions are missing
+                # or stale, so recompute them with the current weights
+                val_preds = survival_eval_split(
+                    state, val_ds, blend=cfg.blend, ties=cfg.ties,
+                    chunk=cfg.eval_chunk)["preds"]
+                val_preds_epoch = epoch
             logger.info("Updating gradient blender weights")
             tr_head = blending.surv_head_losses(
                 _on_device(train_preds, device),
@@ -280,15 +346,16 @@ def train_survival(
             va_head = blending.surv_head_losses(
                 _on_device(val_preds, device), _on_device(val_events, device),
                 _on_device(val_durations, device), ties=cfg.ties)
-            state.blend = blending.blend_update(state.blend, tr_head, va_head,
-                                                True)
+            blending.assign_blend(state.blend, blending.blend_update(
+                state.blend, tr_head, va_head, True))
             blend_history.append(state.blend.weights.cpu().tolist())
             logger.info(f"new weights : {blend_history[-1]}")
 
         state.epoch += 1
         if manager is not None:
             manager.save(epoch + 1, state, {
-                "selection_metric": -selection_loss,
+                "selection_metric": (-selection_loss if do_val
+                                     else float("-inf")),
                 "best_loss": float(best_loss), "best_epoch": best_epoch,
                 "best_c_indices": best_c_indices, "history": history})
 
@@ -314,11 +381,11 @@ def train_survival(
 
 def train_classification(
     state,
-    train_ds: DeviceDataset,
-    val_ds: DeviceDataset,
+    train_ds: DeviceDataset | HostDataset,
+    val_ds: DeviceDataset | HostDataset,
     cfg: LoopConfig,
 ) -> TrainResult:
-    _refuse_fused_epoch(cfg)
+    use_fused, fuse_val = _fused_paths(train_ds, val_ds, cfg)
     device = train_ds.device
     host_labels = train_ds.labels.cpu().numpy()
     val_labels = val_ds.labels.cpu().numpy()
@@ -348,33 +415,52 @@ def train_classification(
     blend_history = history["blend"]
     tracker = LossTracker(history["tracker"])
     n_unique = train_ds.num_samples
+    # see train_survival: the validation logits a blend update reads
+    val_logits, val_logits_epoch = None, -1
 
     tail_mask = (
         torch.as_tensor(batcher.pad_mask()[-1]).to(device)
         if batcher.ragged else None
     )
     steps_total = batcher.steps_per_epoch()
+    state.ensure_rates(cfg.epochs * steps_total)
 
     for epoch in range(first_epoch, cfg.epochs):
         logger.info("-" * 10)
         logger.info(f"epoch {epoch + 1}/{cfg.epochs}")
         epoch_t0 = time.perf_counter()
-        order = batcher.epoch_indices(epoch)  # (steps, batch)
-        step_losses, step_logits = [], []
-        for s, idx in enumerate(order):
-            batch = gather_superbatch(train_ds, idx)
-            aux = classification_train_step(
-                state, batch["inputs"], batch["labels"], pos_weight,
-                blend=cfg.blend, augment=cfg.augment,
-                mask=tail_mask if s == steps_total - 1 else None,
-            )
-            step_losses.append(aux["loss"])
-            step_logits.append(aux["preds"])
-        # one read-back per epoch
-        epoch_loss = torch.stack(step_losses).sum().item()
-        logits_host = torch.stack(step_logits).float().cpu().numpy()
+        do_val = (epoch + 1) % cfg.val_interval == 0
+        val_out = None
+        if use_fused:
+            idx, tail_idx = _epoch_rows(batcher, epoch)
+            out = classification_train_epoch(
+                state, train_ds, pos_weight, idx, tail_idx, tail_mask,
+                val_ds=val_ds if fuse_val else None, blend=cfg.blend,
+                augment=cfg.augment, with_val=fuse_val and do_val)
+            # one read-back per epoch
+            epoch_loss = out["loss"].sum().item()
+            logits_host = out["preds"].float().cpu().numpy()
+            if fuse_val and do_val:
+                val_out = {
+                    "preds": out["val_preds"].float().cpu().numpy(),
+                    "elementwise": out["val_elementwise"].cpu().numpy(),
+                    "loss": out["val_loss"].item()}
+        else:
+            step_losses, step_logits = [], []
+            for s, batch in enumerate(_epoch_batches(train_ds, batcher,
+                                                     epoch)):
+                aux = classification_train_step(
+                    state, batch["inputs"], batch["labels"], pos_weight,
+                    blend=cfg.blend, augment=cfg.augment,
+                    mask=tail_mask if s == steps_total - 1 else None,
+                )
+                step_losses.append(aux["loss"])
+                step_logits.append(aux["preds"])
+            # one read-back per epoch
+            epoch_loss = torch.stack(step_losses).sum().item()
+            logits_host = torch.stack(step_logits).float().cpu().numpy()
 
-        flat_order = order.reshape(-1)
+        flat_order = batcher.epoch_indices(epoch).reshape(-1)
         if cfg.blend:  # (S, K, B, C) -> (K, S * B, C)
             s, k, b, c = logits_host.shape
             tr_logits = logits_host.transpose(1, 0, 2, 3).reshape(k, s * b, c)
@@ -394,50 +480,60 @@ def train_classification(
             f"({train_ds.num_samples / max(epoch_dt, 1e-9):.1f} samples/s)"
         )
 
-        out = classification_eval_split(state, val_ds, pos_weight,
-                                        blend=cfg.blend, chunk=cfg.eval_chunk)
-        val_logits = out["preds"]
-        _, pred_lbl, f1s = thresholded_f1s(
-            val_logits[0] if cfg.blend else val_logits, val_labels)
-        tracker.update(pred_lbl, val_labels, out["elementwise"])
-        val_loss = float(out["elementwise"].sum()) / val_ds.num_samples
-        val_losses.append(val_loss)
-        logger.info(f"Validation loss: {val_loss}")
-        mean_f1 = float(np.nanmean(f1s))
-        val_f1s.append(mean_f1)
-        if mean_f1 > best_metric:
-            best_metric, best_f1s, best_epoch = mean_f1, f1s, epoch + 1
-            if cfg.save_params_name:
-                npz_saver.submit(
-                    os.path.join(cfg.output_dir, cfg.save_params_name),
-                    state.model)
-            logger.info("saved new best metric model")
-        logger.info(
-            f"current epoch: {epoch + 1} current f1: {mean_f1:.4f}"
-            f" best f1: {best_metric:.4f} at epoch: {best_epoch}"
-        )
-        metrics.write(
-            kind="classification_epoch",
-            epoch=epoch + 1,
-            train_loss=epoch_loss,
-            val_loss=val_loss,
-            train_f1=train_f1s[-1],
-            val_f1=mean_f1,
-            epoch_seconds=epoch_dt,
-            samples_per_sec=train_ds.num_samples / max(epoch_dt, 1e-9),
-        )
+        mean_f1 = -1.0
+        if do_val:
+            out = val_out if val_out is not None else \
+                classification_eval_split(state, val_ds, pos_weight,
+                                          blend=cfg.blend,
+                                          chunk=cfg.eval_chunk)
+            val_logits, val_logits_epoch = out["preds"], epoch
+            _, pred_lbl, f1s = thresholded_f1s(
+                val_logits[0] if cfg.blend else val_logits, val_labels)
+            tracker.update(pred_lbl, val_labels, out["elementwise"])
+            val_loss = float(out["elementwise"].sum()) / val_ds.num_samples
+            val_losses.append(val_loss)
+            logger.info(f"Validation loss: {val_loss}")
+            mean_f1 = float(np.nanmean(f1s))
+            val_f1s.append(mean_f1)
+            if mean_f1 > best_metric:
+                best_metric, best_f1s, best_epoch = mean_f1, f1s, epoch + 1
+                if cfg.save_params_name:
+                    npz_saver.submit(
+                        os.path.join(cfg.output_dir, cfg.save_params_name),
+                        state.model)
+                logger.info("saved new best metric model")
+            logger.info(
+                f"current epoch: {epoch + 1} current f1: {mean_f1:.4f}"
+                f" best f1: {best_metric:.4f} at epoch: {best_epoch}"
+            )
+            metrics.write(
+                kind="classification_epoch",
+                epoch=epoch + 1,
+                train_loss=epoch_loss,
+                val_loss=val_loss,
+                train_f1=train_f1s[-1],
+                val_f1=mean_f1,
+                epoch_seconds=epoch_dt,
+                samples_per_sec=train_ds.num_samples / max(epoch_dt, 1e-9),
+            )
 
         if cfg.blend and (epoch + 1) % cfg.blend_update_interval == 0:
             # raw logits for both, as the JAX loop (the reference feeds
             # probabilities and 0/1 predictions through BCE-with-logits)
             logger.info("Updating gradient blender weights")
+            if val_logits is None or val_logits_epoch != epoch:
+                val_logits = classification_eval_split(
+                    state, val_ds, pos_weight, blend=cfg.blend,
+                    chunk=cfg.eval_chunk)["preds"]
+                val_logits_epoch = epoch
             tr_head = blending.class_head_losses(
                 _on_device(tr_logits, device), _on_device(tr_labels, device),
                 pos_weight)
             va_head = blending.class_head_losses(
-                _on_device(val_logits, device), val_ds.labels, pos_weight)
-            state.blend = blending.blend_update(state.blend, tr_head, va_head,
-                                                False)
+                _on_device(val_logits, device), _on_device(val_labels, device),
+                pos_weight)
+            blending.assign_blend(state.blend, blending.blend_update(
+                state.blend, tr_head, va_head, False))
             blend_history.append(state.blend.weights.cpu().tolist())
             logger.info(f"new weights : {blend_history[-1]}")
 

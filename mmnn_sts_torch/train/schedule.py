@@ -9,7 +9,8 @@ train/schedule.py).
 * ``make_optimizer``: SGD with nesterov momentum 0.9 and weight decay 1e-4
   added to the gradient before the momentum, as ``optax.add_decayed_weights``
   + ``optax.sgd(nesterov=True)`` do; the caller sets each step's learning
-  rate from the schedule (``TrainState.apply_gradients``).
+  rate from the schedule (``TrainState.begin_step`` and
+  ``device_update``, which read it from a device table).
 """
 
 from __future__ import annotations

@@ -15,16 +15,27 @@ is accepted here and changes nothing.
 ``classification_train_step`` is one optimizer step per batch, with no
 accumulation (steps.py:449-508); ``classification_eval_step`` the
 validation forward with its unreduced losses (steps.py:511-521, 594-604).
+
+``survival_train_epoch`` and ``classification_train_epoch`` (steps.py:
+341-429, 528-592, ``TPU.fused_epoch``) run a whole epoch over a resident
+split: each step gathers its batch by index and runs the same body as the
+functions above; a ragged last step runs with its mask, and ``with_val``
+adds the validation forward after the last optimizer step. On a CUDA
+device each step is one replay of a CUDA graph (``train/graphs.py``): one
+graph for the full step, one for the masked tail, one for the validation
+forward. On the CPU the same bodies run eagerly over the same buffers.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..ops.augment import eval_transform_batch, train_augment_batch
 from ..ops.blending import blended_class_loss, blended_surv_loss
 from ..ops.cox import multi_cox_loss
 from ..ops.losses import bce_with_logits
+from .graphs import epoch_steps, forward_graph
 from .state import TrainState
 
 
@@ -51,14 +62,38 @@ def _microbatch(inputs, i: int):
     return inputs[i]
 
 
-def _survival_loss(state, out, events, durations, blend, ties, mask=None):
+def _survival_loss(blend_state, out, events, durations, blend, ties,
+                   mask=None):
     """The loss to train on and the selection loss (the multimodal head's
     own loss under blending, else the same loss)."""
     if blend:
-        return blended_surv_loss(state.blend, out, events, durations, ties,
+        return blended_surv_loss(blend_state, out, events, durations, ties,
                                  mask)
     loss = multi_cox_loss(out, events, durations, ties=ties, mask=mask)
     return loss, loss
+
+
+def _superstep_body(state, blend_state, inputs, events, durations,
+                    generator, blend, augment, ties, mask):
+    """The superstep's device work: gradients zeroed in place, the
+    microbatches' forward and backward, the update at the device step
+    counter. ``state.step`` is the caller's."""
+    model = state.model.train()
+    state.zero_gradients()
+    loss_sum = torch.zeros((), device=events.device)
+    outs = []
+    for i in range(events.shape[0]):
+        mb_mask = None if mask is None else mask[i]
+        mb_inputs = _transform_inputs(_microbatch(inputs, i),
+                                      generator if augment else None)
+        out = model(mb_inputs, sample_mask=mb_mask, generator=generator)
+        loss, _ = _survival_loss(blend_state, out, events[i], durations[i],
+                                 blend, ties, mb_mask)
+        loss.backward()
+        loss_sum += loss.detach()
+        outs.append(out.detach())
+    state.device_update()
+    return {"loss": loss_sum, "preds": torch.stack(outs)}
 
 
 def survival_train_superstep(
@@ -87,31 +122,11 @@ def survival_train_superstep(
     if group < 1:
         raise ValueError(f"group must be >= 1, got {group}")
     generator = state.generator if generator is None else generator
-    model = state.model.train()
-    state.optimizer.zero_grad(set_to_none=True)
-    loss_sum = torch.zeros((), device=events.device)
-    outs = []
-    for i in range(events.shape[0]):
-        mb_mask = None if mask is None else mask[i]
-        mb_inputs = _transform_inputs(_microbatch(inputs, i),
-                                      generator if augment else None)
-        out = model(mb_inputs, sample_mask=mb_mask, generator=generator)
-        loss, _ = _survival_loss(state, out, events[i], durations[i], blend,
-                                 ties, mb_mask)
-        loss.backward()
-        loss_sum += loss.detach()
-        outs.append(out.detach())
-    _apply_gradients(state)
-    return {"loss": loss_sum, "preds": torch.stack(outs)}
-
-
-def _apply_gradients(state: TrainState):
-    # optax decays and carries momentum for every parameter; torch's SGD
-    # skips a parameter whose .grad is None, so give unused ones zeros
-    for p in state.model.parameters():
-        if p.requires_grad and p.grad is None:
-            p.grad = torch.zeros_like(p)
-    state.apply_gradients()
+    state.begin_step()
+    aux = _superstep_body(state, state.blend, inputs, events, durations,
+                          generator, blend, augment, ties, mask)
+    state.step += 1
+    return aux
 
 
 @torch.no_grad()
@@ -120,18 +135,41 @@ def survival_eval_step(state: TrainState, inputs, events, durations,
     """Validation forward on leaves (B, ...): eval mode (running BatchNorm
     statistics, no dropout) after the eval transform. Returns ``{"loss",
     "selection_loss", "preds"}`` (steps.py:324-334)."""
-    out = state.model.eval()(_transform_inputs(inputs))
-    loss, selection = _survival_loss(state, out, events, durations, blend,
-                                     ties)
+    return _survival_eval_body(state.model, state.blend, inputs, events,
+                               durations, blend, ties)
+
+
+@torch.no_grad()
+def _survival_eval_body(model, blend_state, inputs, events, durations,
+                        blend, ties):
+    out = model.eval()(_transform_inputs(inputs))
+    loss, selection = _survival_loss(blend_state, out, events, durations,
+                                     blend, ties)
     return {"loss": loss, "selection_loss": selection, "preds": out}
 
 
-def _classification_loss(state, out, labels, pos_weight, blend, mask=None):
+def _classification_loss(blend_state, out, labels, pos_weight, blend,
+                         mask=None):
     if blend:
-        return blended_class_loss(state.blend, out, labels, pos_weight,
+        return blended_class_loss(blend_state, out, labels, pos_weight,
                                   mask)[0]
     return bce_with_logits(out, labels, pos_weight, reduction="sum",
                            mask=mask)
+
+
+def _classification_body(state, blend_state, inputs, labels, pos_weight,
+                         blend, augment, mask):
+    """The classification step's device work (see ``_superstep_body``)."""
+    generator = state.generator
+    model = state.model.train()
+    state.zero_gradients()
+    out = model(_transform_inputs(inputs, generator if augment else None),
+                sample_mask=mask, generator=generator)
+    loss = _classification_loss(blend_state, out, labels, pos_weight, blend,
+                                mask)
+    loss.backward()
+    state.device_update()
+    return {"loss": loss.detach(), "preds": out.detach()}
 
 
 def classification_train_step(
@@ -148,15 +186,11 @@ def classification_train_step(
     marks the valid samples of a wrap-padded ragged batch (left out of the
     loss, the gradients and the BatchNorm statistics); ``state.generator``
     feeds the augmentation and dropout."""
-    generator = state.generator
-    model = state.model.train()
-    state.optimizer.zero_grad(set_to_none=True)
-    out = model(_transform_inputs(inputs, generator if augment else None),
-                sample_mask=mask, generator=generator)
-    loss = _classification_loss(state, out, labels, pos_weight, blend, mask)
-    loss.backward()
-    _apply_gradients(state)
-    return {"loss": loss.detach(), "preds": out.detach()}
+    state.begin_step()
+    aux = _classification_body(state, state.blend, inputs, labels,
+                               pos_weight, blend, augment, mask)
+    state.step += 1
+    return aux
 
 
 @torch.no_grad()
@@ -166,9 +200,129 @@ def classification_eval_step(state: TrainState, inputs, labels, pos_weight,
     transform. Returns ``{"loss", "preds", "elementwise"}``, the last the
     (B, C) unreduced BCE of the multimodal head, which the ``LossTracker``
     reads."""
-    out = state.model.eval()(_transform_inputs(inputs))
+    return _classification_eval_body(state.model, state.blend, inputs,
+                                     labels, pos_weight, blend)
+
+
+@torch.no_grad()
+def _classification_eval_body(model, blend_state, inputs, labels,
+                              pos_weight, blend):
+    out = model.eval()(_transform_inputs(inputs))
     head = out[0] if blend else out
     elementwise = bce_with_logits(head, labels, pos_weight, reduction="none")
-    loss = (_classification_loss(state, out, labels, pos_weight, blend)
+    loss = (_classification_loss(blend_state, out, labels, pos_weight, blend)
             if blend else elementwise.sum())
     return {"loss": loss, "preds": out, "elementwise": elementwise}
+
+
+# ---------------------------------------------------------------------------
+# Whole epochs (TPU.fused_epoch)
+# ---------------------------------------------------------------------------
+
+
+def _run_epoch(state, ds, idx, tail_idx, tail_mask, names, body, flags):
+    """The steps of one epoch through the step bodies of ``body``
+    (``graphs.EpochSteps``): a full step a row of ``idx``, then the masked
+    tail. Returns the epoch's ``loss`` and ``preds`` (one row a step, the
+    tail's last)."""
+    rows = [("step", i, None) for i in idx]
+    if tail_idx is not None:
+        rows.append(("tail", tail_idx, tail_mask))
+    if not rows:
+        raise ValueError("an epoch needs at least one step")
+    shape = tuple(np.shape(rows[0][1]))
+    state.ensure_rates(state.step + len(rows))
+    epoch = epoch_steps(state, (id(ds), shape, len(rows)) + flags, ds, names,
+                        shape, len(rows), body)
+    for slot, (kind, step_idx, mask) in enumerate(rows):
+        state.begin_step()
+        out = epoch.run(kind, step_idx, slot, mask)
+        state.step += 1
+    return {"loss": out["loss"].clone(), "preds": out["preds"].clone()}
+
+
+def _forward(state, key, forward, ds, names):
+    def reads():
+        inputs = ds.model_inputs()
+        return ((list(inputs.values()) if isinstance(inputs, dict)
+                 else [inputs]) + [getattr(ds, n) for n in names])
+
+    out = forward_graph(state, key, forward, reads).run()
+    return {k: v.clone() for k, v in out.items()}
+
+
+def survival_train_epoch(
+    state: TrainState,
+    train_ds,  # resident split: DeviceDataset with events and durations
+    idx,  # (S, A, B) integer indices into train_ds, one row a superstep
+    tail_idx=None,  # (A, B): the ragged last superstep
+    tail_mask=None,  # (A, B) 0/1 validity of tail_idx
+    val_ds=None,  # resident validation split, for ``with_val``
+    blend: bool = False,
+    augment: bool = True,
+    ties: str = "breslow",
+    with_val: bool = False,
+):
+    """A whole training epoch (steps.py:341-429): one superstep a row of
+    ``idx``, each gathering its (A, B, ...) batch from the resident split
+    by index, then the masked tail, then with ``with_val`` the validation
+    forward on ``val_ds`` after the last optimizer step. Updates ``state``
+    in place (``step`` counts every superstep); returns ``{"loss":
+    (S[+1],), "preds": (S[+1], A, [K,] B, C)}`` and with ``with_val``
+    ``val_preds``, ``val_loss`` and ``val_selection``."""
+    def body(state, blend_state, batch, mask):
+        return _superstep_body(state, blend_state, batch["inputs"],
+                               batch["events"], batch["durations"],
+                               state.generator, blend, augment, ties, mask)
+
+    out = _run_epoch(state, train_ds, idx, tail_idx, tail_mask,
+                     ("events", "durations"), body,
+                     ("survival", blend, augment, ties))
+    if with_val:
+        def val(blend_state):
+            return _survival_eval_body(
+                state.model, blend_state, val_ds.model_inputs(),
+                val_ds.events, val_ds.durations, blend, ties)
+
+        ev = _forward(state, ("survival_val", id(val_ds), blend, ties), val,
+                      val_ds, ("events", "durations"))
+        out.update(val_preds=ev["preds"], val_loss=ev["loss"],
+                   val_selection=ev["selection_loss"])
+    return out
+
+
+def classification_train_epoch(
+    state: TrainState,
+    train_ds,  # resident split: DeviceDataset with labels
+    pos_weight: torch.Tensor,  # (C,) on the split's device
+    idx,  # (S, B) integer indices, one row a step
+    tail_idx=None,  # (B,): the ragged last batch
+    tail_mask=None,  # (B,) 0/1 validity of tail_idx
+    val_ds=None,
+    blend: bool = False,
+    augment: bool = True,
+    with_val: bool = False,
+):
+    """A whole classification epoch (steps.py:528-592): one optimizer step
+    a row of ``idx``, then the masked tail, then with ``with_val`` the
+    validation forward. Returns ``{"loss": (S[+1],), "preds": (S[+1], [K,]
+    B, C)}`` and with ``with_val`` ``val_preds``, ``val_elementwise`` and
+    ``val_loss``."""
+    def body(state, blend_state, batch, mask):
+        return _classification_body(state, blend_state, batch["inputs"],
+                                    batch["labels"], pos_weight, blend,
+                                    augment, mask)
+
+    out = _run_epoch(state, train_ds, idx, tail_idx, tail_mask, ("labels",),
+                     body, ("classification", id(pos_weight), blend, augment))
+    if with_val:
+        def val(blend_state):
+            return _classification_eval_body(
+                state.model, blend_state, val_ds.model_inputs(),
+                val_ds.labels, pos_weight, blend)
+
+        ev = _forward(state, ("classification_val", id(val_ds),
+                              id(pos_weight), blend), val, val_ds, ("labels",))
+        out.update(val_preds=ev["preds"], val_elementwise=ev["elementwise"],
+                   val_loss=ev["loss"])
+    return out

@@ -15,9 +15,11 @@
   tests/test_native.py holds the pool to.
 * ``EpochBatcher``'s indices and masks are identical over a grid of N,
   microbatch and accumulation; ``gather_superbatch`` and
-  ``standardize_bundle`` agree exactly.
+  ``standardize_bundle`` agree exactly; ``make_split_dataset`` makes the
+  same splits, device-resident and host-resident.
 * A subprocess with pandas, matplotlib, yaml, jax, flax, optax and the JAX
-  package blocked builds the cohort from a JSON config.
+  package blocked builds the cohort from a JSON config, resident and on
+  the host, and imports the training loop and its CUDA-graph module.
 """
 
 import json
@@ -286,7 +288,9 @@ def test_standardize_bundle_matches_jax(cohort):
 
 
 def test_make_split_dataset_matches_jax_and_needs_a_device(cohort):
-    from mmnn_sts_torch.exceptions import ConfigurationError
+    """Device-resident and (``TPU.device_resident_dataset: false``)
+    host-resident, each against the JAX package's."""
+    from mmnn_sts_torch.data.streaming import HostDataset
 
     paths, _ = cohort
     tcfg, jcfg = _configs(paths)
@@ -310,10 +314,20 @@ def test_make_split_dataset_matches_jax_and_needs_a_device(cohort):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             tpipe.make_split_dataset(tcfg, tpipe.TaskFlags(**flags), got_b,
                                      uids)
+    # TPU.device_resident_dataset: false keeps the split on the host
     tcfg.tpu.device_resident_dataset = False
-    with pytest.raises(ConfigurationError, match="ROADMAP"):
-        tpipe.make_split_dataset(tcfg, tpipe.TaskFlags(**flags), got_b,
-                                 uids, "cpu")
+    host = tpipe.make_split_dataset(tcfg, tpipe.TaskFlags(**flags), got_b,
+                                    uids, "cpu")
+    want = jpipe.make_split_dataset(jcfg, jpipe.TaskFlags(**flags), want_b,
+                                    uids, mesh, device_resident=False)
+    assert isinstance(host, HostDataset) and host.device.type == "cpu"
+    np.testing.assert_array_equal(host.uids, want.uids)
+    for k in ("image", "clinical"):
+        assert host.inputs[k].device.type == "cpu"
+        np.testing.assert_allclose(host.inputs[k].numpy(),
+                                   np.asarray(want.inputs[k]), **COHORT_TOL)
+    np.testing.assert_array_equal(host.events.numpy(), want.events)
+    np.testing.assert_array_equal(host.durations.numpy(), want.durations)
 
 
 BLOCKED = ("pandas", "matplotlib", "yaml", "jax", "jaxlib", "flax", "optax",
@@ -358,6 +372,11 @@ def test_cohort_builds_without_pandas_yaml_or_jax(cohort, tmp_path):
         "train, val, test = resolve_splits(cfg, flags, bundle, 42)\n"
         "ds = make_split_dataset(cfg, flags, bundle, train, device='cpu')\n"
         f"assert ds.inputs['image'].shape[1:] == ({SIDE},) * 3 + (2,)\n"
+        "import mmnn_sts_torch.train.graphs, mmnn_sts_torch.train.loop\n"
+        "from mmnn_sts_torch.data.streaming import HostDataset\n"
+        "cfg.tpu.device_resident_dataset = False\n"
+        "host = make_split_dataset(cfg, flags, bundle, train, device='cpu')\n"
+        "assert isinstance(host, HostDataset)\n"
         f"assert len(train) + len(val) + len(test) == {N_COHORT}\n"
         "print('ok')\n",
         str(tmp_path))
