@@ -312,8 +312,56 @@ def dense(in_features: int, out_features: int,
     return d
 
 
+class _MaxPool(torch.autograd.Function):
+    """``F.max_pool3d`` whose backward adds each input's gradient in a
+    fixed order: torch's CPU order (the outputs in row-major order, each
+    add rounded to the gradient's dtype), as one strided add into a padded
+    buffer per offset in the window, the last offset first. The card's own
+    backward adds with atomics, so two runs of one training step would
+    differ in the last bits of the stem's gradients."""
+
+    @staticmethod
+    def forward(ctx, x, window, stride, padding):
+        out, idx = F.max_pool3d(x, window, stride, padding,
+                                return_indices=True)
+        ctx.save_for_backward(idx)
+        ctx.geometry = (x.shape, window, stride, padding)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        (n, c, d, h, w), window, stride, padding = ctx.geometry
+        od, oh, ow = g.shape[2:]
+        starts = [torch.arange(o, device=g.device) * stride - padding
+                  for o in (od, oh, ow)]
+        corner = ((starts[0].view(-1, 1, 1) * h + starts[1].view(1, -1, 1))
+                  * w + starts[2].view(1, 1, -1))
+        # each output's argmax as its offset a*h*w + b*w + c in the window
+        offset = idx - corner
+        fmt = (torch.contiguous_format if g.is_contiguous()
+               else CHANNELS_LAST)
+        acc = torch.zeros((n, c, d + 2 * padding, h + 2 * padding,
+                           w + 2 * padding), dtype=g.dtype, device=g.device
+                          ).contiguous(memory_format=fmt)
+        span = [stride * (o - 1) + 1 for o in (od, oh, ow)]
+        # an input's windows in row-major order are its offsets in reverse
+        for a, b, k in itertools.product(range(window - 1, -1, -1),
+                                         repeat=3):
+            acc[:, :, a:a + span[0]:stride, b:b + span[1]:stride,
+                k:k + span[2]:stride].add_(
+                    g.masked_fill(offset != (a * h + b) * w + k, 0))
+        grad = acc[:, :, padding:padding + d, padding:padding + h,
+                   padding:padding + w]
+        return grad.contiguous(memory_format=fmt), None, None, None
+
+
 def max_pool(x, window: int, stride: int, padding: int):
-    """Max pool with symmetric integer padding (padding counts as -inf)."""
+    """Max pool with symmetric integer padding (padding counts as -inf);
+    where a gradient is taken, its backward is deterministic
+    (``_MaxPool``)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _MaxPool.apply(x, window, stride, padding)
     return F.max_pool3d(x, window, stride, padding)
 
 

@@ -269,3 +269,30 @@ def test_train_mode_is_refused():
     assert state.step == 0
     aux = survival_train_superstep(state, *args, augment=True)
     assert state.step == 1 and torch.isfinite(aux["loss"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["contiguous", "channels_last"])
+@pytest.mark.parametrize("geometry", [(3, 2, 1), (2, 2, 0), (3, 1, 1)],
+                         ids=["stem", "halving", "overlapping"])
+def test_max_pool_backward_is_torch_bit_for_bit(dtype, layout, geometry):
+    """The port's max pool (a fixed-order backward, so that the card's
+    training step repeats its bits) gives torch's own forward and
+    gradient bit for bit on the CPU, ties and a NaN included."""
+    from mmnn_sts_torch.models.common import CHANNELS_LAST, max_pool
+
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((2, 3, 9, 8, 7), generator=gen).to(dtype)
+    x[0, 0, 0, 0, 1] = x[0, 0, 0, 0, 0]  # a tie
+    x[1, 2, 4, 4, 4] = float("nan")
+    if layout == "channels_last":
+        x = x.to(memory_format=CHANNELS_LAST)
+    mine, theirs = x.clone().requires_grad_(), x.clone().requires_grad_()
+    out = max_pool(mine, *geometry)
+    want = torch.nn.functional.max_pool3d(theirs, *geometry)
+    g = torch.randn(out.shape, generator=gen).to(dtype)
+    out.backward(g)
+    want.backward(g)
+    assert torch.equal(out.nan_to_num(), want.nan_to_num())
+    assert torch.equal(mine.grad, theirs.grad)
+    assert mine.grad.stride() == theirs.grad.stride()
