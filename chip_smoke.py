@@ -7,7 +7,9 @@ Phases; any failure is an uncaught exception and a nonzero exit:
 
 1. Device: requires CUDA; prints the card's name and power limit.
 2. Build: compiles every CUDA kernel of the port from the sources in this
-   checkout (one nvcc per source, all at once) and prints the seconds taken.
+   checkout (one nvcc per source, all at once) and, beside them, the host
+   C++ library of the cohort build (native/mmnn_native.cpp, g++), and
+   prints the seconds taken.
 3. Kernel: calls fused_bn_relu_matmul on the card at every (M, Cin) shape of
    DenseNet121's 58 bottlenecks at 64^3, for every batch bucket of the
    servable (1, 2, 4, 8, 16, 32), in float32 (fused_bn_relu_matmul.cu, the
@@ -129,6 +131,12 @@ Phases; any failure is an uncaught exception and a nonzero exit:
    a patient key, and a JSON config (densenet121, t1t2, 64^3 x 2ch). Then
    mmnn_sts_torch.cli.main in this process: --images --preop --survival
    --blend --split --epochs 3 --blend_update_interval 1 --checkpoint_dir.
+   The cohort build goes through the C++ pool (data/native.py, built from
+   native/mmnn_native.cpp with g++): one pool call a modality, each
+   decoding all CLI_PATIENTS patients, no patient handed to the numpy path;
+   then build_image_cohort once with the pool and once on the plain numpy
+   path (use_native=False), both timed, the two cohorts within
+   COHORT_TOLERANCE x (1 + |plain|) of each other.
    Checked: rc 0, the uid files, 3 survival_epoch rows with finite losses
    and C-indices in [0, 1], blend weights that moved and sum to 1, a
    best_surv_model.npz that loads strictly into a fresh port model, and
@@ -193,7 +201,32 @@ Phases; any failure is an uncaught exception and a nonzero exit:
    [0, 1]); --lr_finder --images --preop --survival with the flagship
    config (100 steps, 5,800 launches, lrs[0] = 1e-7 in float32, a finite
    min-loss rate, lr_finder.png only where matplotlib is installed).
-16. Prints the kernels' JSON line, the card's line, and last
+16. The flagship run from a DICOM cohort (Data.image_format: dicom), at
+   full width: the CLI phase's patients (its key and clinical table)
+   written by this script as DICOM trees, per modality and patient an
+   image/ series of CLI_VOLUME[0] single-frame .dcm slices (12-bit samples,
+   with geometry) and a mask/ multiframe .dcm on the same grid; all
+   explicit VR little endian but for four patients, one each in RLE,
+   JPEG Lossless SV1, JPEG-LS and JPEG 2000 (T1 only), encoded by the
+   port's encoders in worker processes. --images --preop --survival
+   --blend --split --epochs 2: rc 0, finite losses, C-indices in [0, 1],
+   launches = supersteps x 464 + validation forwards x 58, the best .npz
+   loading strictly; the C++ decoders' frame counts equal the JPEG-LS,
+   JPEG-Lossless and J2K series' slices, with no frame handed to Python;
+   each compressed series as the C++ decoders read it equal to the port's
+   pure-Python decode, bit for bit. Then --inference --survival --blend
+   --no_gradcam on its test split (finite predictions, 58 launches an eval
+   step). Prints the writer's, the cohort build's and each epoch's seconds.
+17. The flagship run from s3:// paths: boto3 replaced by a stub backed by
+   a local directory (FakeS3; boto3 is not installed there), the CLI
+   phase's NIfTI cohort and uid lists copied into its bucket, Data.bucket
+   set: 1 epoch from the uid lists (rc 0, finite losses, launches as
+   above), the uploaded keys equal to train_artifact_names' under
+   Preprocessing.output_dir for the artifacts written, the uploaded
+   model.npz equal to the best .npz; then build_manifest_dicom_s3 over a
+   copy of phase 16's T1 tree gives build_manifest_dicom's records (anon
+   ids, uids, every fetched file's bytes).
+18. Prints the kernels' JSON line, the card's line, and last
    {"ok": true, "device": {...}}.
 
 Per-shape kernel results go to chiprun_out/chip_smoke_kernels.jsonl, the
@@ -264,6 +297,19 @@ BF16_CONTROL_FACTOR = 4.0
 # an epoch, the second ragged), each volume MRI-like in size
 CLI_PATIENTS, CLI_VOLUME, CLI_EPOCHS = 96, (80, 72, 48), 3
 CLI_MODEL, CLI_SIDE, CLI_DEVICE = "densenet121", 64, "cuda"
+# the cohort through the C++ pool against the plain numpy path, per voxel:
+# |pool - plain| <= this x (1 + |plain|) (the resize's float32 sums in
+# another order)
+COHORT_TOLERANCE = 1e-5
+# the DICOM cohort: the CLI phase's patients written as DICOM series
+# (slices along CLI_VOLUME's first axis, 12-bit samples in 16-bit words),
+# all explicit VR little endian but for one patient a compressed syntax
+# (J2K in T1 only: its pure-Python encoder is the slowest); epochs of its
+# CLI run; the s3:// run's epochs and bucket names
+DICOM_COMPRESSED = (("rle", ("t1", "t2")), ("jpeg_lossless", ("t1", "t2")),
+                    ("jpeg_ls", ("t1", "t2")), ("j2k", ("t1",)))
+DICOM_EPOCHS, S3_EPOCHS = 2, 1
+S3_BUCKET, S3_ARTIFACTS, S3_PREFIX = "cohorts", "artifacts", "models/smoke"
 # the wider DenseNets whose bottleneck shapes the kernel is checked at
 WIDE_MODELS = ("densenet169", "densenet201", "densenet264")
 # every image model name beyond the flagship's, each driven at full width:
@@ -1318,6 +1364,7 @@ def cli_phase(fd, seed: int, workdir: Path) -> dict:
     module docstring, phase 11). Returns its kernel launches and counts."""
     from mmnn_sts_torch import cli, pipeline
     from mmnn_sts_torch.config import parse_config
+    from mmnn_sts_torch.data import images, native
     from mmnn_sts_torch.infer.export import ServingModel
     from mmnn_sts_torch.models import build_model
     from mmnn_sts_torch.train import checkpoint, evaluate, loop
@@ -1345,10 +1392,13 @@ def cli_phase(fd, seed: int, workdir: Path) -> dict:
             "--output_path", str(out), "--checkpoint_dir", str(ck),
             "--device", CLI_DEVICE]
 
-    counts = {}
+    counts, pool_calls = {}, []
     patches = [
         mock.patch.object(pipeline, "load_cohort",
                           counted(pipeline.load_cohort, counts, "cohort")),
+        mock.patch.object(native, "preprocess_cohort_native",
+                          recorded(native.preprocess_cohort_native,
+                                   pool_calls)),
         mock.patch.object(loop, "survival_train_superstep",
                           counted(loop.survival_train_superstep, counts,
                                   "supersteps")),
@@ -1375,6 +1425,7 @@ def cli_phase(fd, seed: int, workdir: Path) -> dict:
                 p.stop()
             os.chdir(cwd)
 
+    native.reset_counts()
     fd.fused_bn_relu_matmul.launches = 0
     t0 = time.perf_counter()
     rc = run(["--epochs", str(CLI_EPOCHS)])
@@ -1383,6 +1434,35 @@ def cli_phase(fd, seed: int, workdir: Path) -> dict:
     launches = fd.fused_bn_relu_matmul.launches
     if rc != 0:
         raise AssertionError(f"the CLI returned {rc}")
+    # the cohort build went through the C++ pool: one call a modality, every
+    # patient decoded there, none handed to the numpy path
+    pooled = [int(np.count_nonzero(out[1] == 0)) for _, _, out in pool_calls]
+    if pooled != [CLI_PATIENTS, CLI_PATIENTS] \
+            or native.counts["patient_fallbacks"] != 0:
+        raise AssertionError(f"the cohort pool decoded {pooled} patients of "
+                             f"{CLI_PATIENTS} a modality; counts "
+                             f"{native.counts}")
+    dirs = [str(paths["root"] / m) for m in ("t1", "t2")]
+    t0 = time.perf_counter()
+    plain = images.build_image_cohort(dirs, str(paths["key"]),
+                                      (CLI_SIDE,) * 3, "fill",
+                                      use_native=False)
+    plain_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pool = images.build_image_cohort(dirs, str(paths["key"]),
+                                     (CLI_SIDE,) * 3, "fill")
+    pool_s = time.perf_counter() - t0
+    excess = np.abs(pool.volumes - plain.volumes) / (
+        COHORT_TOLERANCE * (1.0 + np.abs(plain.volumes)))
+    if not np.array_equal(pool.uids, plain.uids) or excess.max() > 1.0:
+        raise AssertionError(f"the pool's cohort lies {excess.max():.3g} x "
+                             f"the tolerance from the plain path's")
+    print(f"cli cohort build ({CLI_PATIENTS} patients x 2 modalities, "
+          f"{CLI_VOLUME} -> {CLI_SIDE}^3): C++ pool {pool_s:.2f} s, plain "
+          f"numpy path {plain_s:.2f} s (build_image_cohort, the same call); "
+          f"pool {pooled} patients a modality, 0 fallbacks; max |pool - "
+          f"plain| {np.abs(pool.volumes - plain.volumes).max():.3g} "
+          f"(<= {COHORT_TOLERANCE:g} x (1 + |plain|))")
     uid_lists = {name: (run_dir / f"{name}_uids.txt").read_text().split()
                  for name in ("train", "val", "test")}
     if sum(len(v) for v in uid_lists.values()) != CLI_PATIENTS:
@@ -1414,7 +1494,8 @@ def cli_phase(fd, seed: int, workdir: Path) -> dict:
     spe = counts["supersteps"] // CLI_EPOCHS
     run_counts = {"launches": launches, "per_epoch": launches // CLI_EPOCHS,
                   "supersteps": counts["supersteps"],
-                  "val_forwards": counts["val_forwards"]}
+                  "val_forwards": counts["val_forwards"],
+                  "pool_s": pool_s, "plain_s": plain_s}
     print(f"cli run: rc {rc}, {wall:.1f} s; train/val/test "
           f"{len(uid_lists['train'])}/{len(uid_lists['val'])}/"
           f"{len(uid_lists['test'])} patients; cohort build (load_cohort) "
@@ -2456,6 +2537,443 @@ def wide_cli_phase(fd, seed: int, workdir: Path) -> dict:
             "served": served_launches, "lr_finder": launches}
 
 
+
+def dicom_element(group: int, element: int, vr: bytes, value: bytes) -> bytes:
+    """One explicit VR little endian data element (even length)."""
+    import struct
+
+    if len(value) % 2:
+        value += b"\x00" if vr in (b"OB", b"UI") else b" "
+    if vr in (b"OB", b"OW", b"UN", b"SQ"):
+        return struct.pack("<HH2sHI", group, element, vr, 0, len(value)) \
+            + value
+    return struct.pack("<HH2sH", group, element, vr, len(value)) + value
+
+
+def write_dicom(path: Path, syntax: str, pixels: np.ndarray, z: float,
+                instance: int = 1, streams=None, grid_offsets=None):
+    """A .dcm file of ``pixels`` ((rows, cols), or (frames, rows, cols) for
+    a multiframe file) as unsigned 12-bit samples in 16-bit words, with its
+    geometry (position (0, 0, z), axis-aligned orientation, 1 x 1 mm
+    pixels, 2 mm between slices or ``grid_offsets``): uncompressed in
+    explicit VR little endian, or ``streams`` (one compressed frame each)
+    encapsulated under the transfer syntax ``syntax``."""
+    import struct
+
+    frames = pixels.shape[0] if pixels.ndim == 3 else 1
+    rows, cols = pixels.shape[-2:]
+    ts = syntax.encode()
+    parts = [b"\x00" * 128, b"DICM",
+             dicom_element(0x0002, 0x0010, b"UI", ts)]
+    us = lambda v: struct.pack("<H", v)  # noqa: E731
+    parts += [
+        dicom_element(0x0018, 0x0088, b"DS", b"2.0"),
+        dicom_element(0x0020, 0x0013, b"IS", str(instance).encode()),
+        dicom_element(0x0020, 0x0032, b"DS", f"0\\0\\{z}".encode()),
+        dicom_element(0x0020, 0x0037, b"DS", b"1\\0\\0\\0\\1\\0"),
+        dicom_element(0x0028, 0x0002, b"US", us(1)),
+    ]
+    if frames > 1:
+        parts.append(dicom_element(0x0028, 0x0008, b"IS",
+                                   str(frames).encode()))
+    parts += [
+        dicom_element(0x0028, 0x0010, b"US", us(rows)),
+        dicom_element(0x0028, 0x0011, b"US", us(cols)),
+        dicom_element(0x0028, 0x0030, b"DS", b"1.0\\1.0"),
+        dicom_element(0x0028, 0x0100, b"US", us(16)),
+        dicom_element(0x0028, 0x0101, b"US", us(12)),
+        dicom_element(0x0028, 0x0103, b"US", us(0)),
+    ]
+    if grid_offsets is not None:
+        parts.append(dicom_element(0x3004, 0x000C, b"DS", "\\".join(
+            f"{o:g}" for o in grid_offsets).encode()))
+    if streams is None:
+        parts.append(dicom_element(0x7FE0, 0x0010, b"OW",
+                                   pixels.astype("<u2").tobytes()))
+    else:
+        parts.append(struct.pack("<HH2sHI", 0x7FE0, 0x0010, b"OB", 0,
+                                 0xFFFFFFFF))
+        parts.append(struct.pack("<HHI", 0xFFFE, 0xE000, 0))  # empty BOT
+        for st in streams:
+            st += b"\x00" if len(st) % 2 else b""
+            parts.append(struct.pack("<HHI", 0xFFFE, 0xE000, len(st)) + st)
+        parts.append(struct.pack("<HHI", 0xFFFE, 0xE0DD, 0))
+    path.write_bytes(b"".join(parts))
+
+
+def encode_frame(kind: str, frame: np.ndarray) -> bytes:
+    """One 12-bit frame through the port's encoder of ``kind`` (run in the
+    writer's worker processes)."""
+    from mmnn_sts_torch.data import (dicom_rle, jpeg2000, jpeg_lossless,
+                                     jpeg_ls)
+
+    if kind == "rle":
+        return dicom_rle.encode_rle_frame(frame.astype(np.uint16), 16)
+    if kind == "jpeg_lossless":
+        return jpeg_lossless.encode_jpeg_lossless_sv1(frame, 16)
+    if kind == "jpeg_ls":
+        return jpeg_ls.encode_jpeg_ls(frame, 12)
+    return jpeg2000.encode_j2k(frame, 12)
+
+
+def python_decoded(path: str) -> np.ndarray:
+    """A .dcm file's pixels decoded with the C++ frame decoders patched out,
+    so that every frame goes through the port's pure-Python codec (run in
+    the writer's worker processes)."""
+    from mmnn_sts_torch.data import dicom, native
+
+    with mock.patch.object(native, "jpeg_ls_decode_native",
+                           lambda *a: None), \
+            mock.patch.object(native, "jpeg_lossless_decode_native",
+                              lambda *a: None), \
+            mock.patch.object(native, "j2k_decode_native", lambda *a: None):
+        return dicom.load_dicom_series(path)
+
+
+def process_pool():
+    """Worker processes for the pure-Python codecs (spawned: the parent
+    holds the card), one a core up to 8."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    return ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1),
+                               mp_context=multiprocessing.get_context("spawn"))
+
+
+def write_dicom_cohort(root: Path, cohort: Path, seed: int) -> dict:
+    """The CLI phase's patients (its key and clinical table) as a DICOM
+    tree: root/{t1,t2}/<anon>/image/s###.dcm (one slice each of a
+    CLI_VOLUME volume: squared normals x 500 as 12-bit samples) and
+    root/{t1,t2}/<anon>/mask/mask.dcm (a multiframe 0/255 box on the same
+    grid). The first patients of the key take DICOM_COMPRESSED's syntaxes,
+    one each, in the modalities listed; their frames are encoded by the
+    port's encoders in worker processes. Returns {(kind, modality): image
+    directory} of the compressed series."""
+    import csv
+
+    from mmnn_sts_torch.data import dicom
+
+    syntaxes = {"rle": dicom.RLE_LOSSLESS,
+                "jpeg_lossless": dicom.JPEG_LOSSLESS_SV1,
+                "jpeg_ls": dicom.JPEG_LS_LOSSLESS, "j2k": dicom.J2K_LOSSLESS}
+    with open(cohort / "key.csv", newline="") as f:
+        anon = [row[0] for row in list(csv.reader(f))[1:]]
+    rng = np.random.default_rng(seed)
+    mask = np.zeros(CLI_VOLUME, np.uint16)
+    mask[8:-8, 8:-8, 6:-6] = 255
+    offsets = [2.0 * k for k in range(CLI_VOLUME[0])]
+    compressed = {(kind, m): anon[i]
+                  for i, (kind, modalities) in enumerate(DICOM_COMPRESSED)
+                  for m in modalities}
+    jobs, out = [], {}
+    with process_pool() as pool:
+        for modality in ("t1", "t2"):
+            for a in anon:
+                image_dir = root / modality / a / "image"
+                image_dir.mkdir(parents=True)
+                (root / modality / a / "mask").mkdir()
+                vol = np.clip(rng.normal(size=CLI_VOLUME) ** 2 * 500, 0,
+                              4095).astype(np.uint16)
+                write_dicom(root / modality / a / "mask" / "mask.dcm",
+                            dicom.EXPLICIT_LE, mask, 0.0,
+                            grid_offsets=offsets)
+                kind = next((k for (k, m), who in compressed.items()
+                             if m == modality and who == a), None)
+                if kind is not None:
+                    out[(kind, modality)] = image_dir
+                for k in range(CLI_VOLUME[0]):
+                    path = image_dir / f"s{k:03d}.dcm"
+                    if kind is None:
+                        write_dicom(path, dicom.EXPLICIT_LE, vol[k], 2.0 * k,
+                                    k + 1)
+                    else:
+                        jobs.append((path, syntaxes[kind], vol[k], 2.0 * k,
+                                     k + 1, pool.submit(encode_frame, kind,
+                                                        vol[k])))
+        for path, syntax, frame, z, instance, job in jobs:
+            write_dicom(path, syntax, frame, z, instance,
+                        streams=[job.result()])
+    return out
+
+
+def dicom_cli_phase(fd, seed: int, workdir: Path) -> dict:
+    """The flagship survival run through the CLI from a DICOM cohort at full
+    width, then its --inference (see the module docstring, phase 16).
+    Returns its launches and seconds."""
+    from mmnn_sts_torch import pipeline
+    from mmnn_sts_torch.config import parse_config
+    from mmnn_sts_torch.data import dicom, native
+    from mmnn_sts_torch.models import build_model
+    from mmnn_sts_torch.train import checkpoint, evaluate, loop
+
+    cohort = workdir / "cohort"
+    root = workdir / "dicom_cohort"
+    t0 = time.perf_counter()
+    series = write_dicom_cohort(root, cohort, seed + 10)
+    write_s = time.perf_counter() - t0
+    print(f"dicom cohort written ({CLI_PATIENTS} patients x 2 modalities, "
+          f"{CLI_VOLUME[0]} slices of {CLI_VOLUME[1:]} each and a multiframe "
+          f"mask; compressed: {sorted(series)}): {write_s:.1f} s")
+    base = json.loads((workdir / "config.json").read_text())
+    base["Data"].update(image_loc=str(root), image_format="dicom")
+    config_path = workdir / "dicom.json"
+    config_path.write_text(json.dumps(base))
+    run_dir, out = workdir / "dicom_run", workdir / "dicom_run" / "out"
+    run_dir.mkdir()
+    per_forward = sum(build_model(parse_config(str(config_path)), True, True,
+                                  False, True).image_model.block_config)
+
+    counts = {}
+    native.reset_counts()
+    rc, wall, launches = run_cli(fd, [
+        "--images", "--preop", "--survival", "--blend", "--split",
+        "--config", str(config_path), "--epochs", str(DICOM_EPOCHS),
+        "--blend_update_interval", "1", "--output_path", str(out)], run_dir, [
+            mock.patch.object(pipeline, "load_cohort", counted(
+                pipeline.load_cohort, counts, "cohort")),
+            mock.patch.object(loop, "survival_train_superstep", counted(
+                loop.survival_train_superstep, counts, "supersteps")),
+            mock.patch.object(evaluate, "survival_eval_step", counted(
+                evaluate.survival_eval_step, counts, "val_forwards"))])
+    frames = dict(native.counts)
+    cohort_s = counts.get("cohort_s", [float("nan")])[0]
+    rows = [json.loads(x) for x in (out / "metrics.jsonl").read_text()
+            .splitlines()] if rc == 0 else []
+    expected = (counts.get("supersteps", 0) * TRAIN_MICRO
+                + counts.get("val_forwards", 0)) * per_forward
+    if rc != 0 or launches != expected or len(rows) != DICOM_EPOCHS \
+            or not all(np.isfinite([r["train_loss"], r["val_loss"]]).all()
+                       and 0.0 <= r["train_c"] <= 1.0
+                       and 0.0 <= r["val_c"] <= 1.0 for r in rows):
+        raise AssertionError(f"dicom CLI run: rc {rc}, {launches} launches "
+                             f"(expected {expected}), rows {rows}")
+    fresh = build_model(parse_config(str(config_path)), True, True, False,
+                        True)
+    checkpoint.load_params_npz(str(out / "best_surv_model.npz"), fresh)
+    want = {f"{kind}_frames": CLI_VOLUME[0] * sum(
+        1 for k, _ in series if k == kind)
+        for kind in ("jpeg_ls", "jpeg_lossless", "j2k")}
+    if any(frames[k] != v for k, v in want.items()) \
+            or frames["frame_fallbacks"] != 0:
+        raise AssertionError(f"C++ frame decoders: {frames}, expected "
+                             f"{want} and no fallback")
+    # each compressed series through the C++ decoders (as the cohort build
+    # read it) against the port's pure-Python decoders, bit for bit
+    t0 = time.perf_counter()
+    with process_pool() as pool:
+        checks = {key: pool.map(python_decoded, sorted(
+            str(p) for p in image_dir.iterdir()))
+            for key, image_dir in series.items()}
+        for key, slices in checks.items():
+            fast = dicom.load_dicom_series(str(series[key]))
+            slow = np.concatenate(list(slices))
+            if fast.dtype != slow.dtype or not np.array_equal(fast, slow):
+                raise AssertionError(f"{key}: the C++ decode differs from "
+                                     f"the Python decode")
+    check_s = time.perf_counter() - t0
+    print(f"dicom cli run (image_format dicom): rc {rc}, {wall:.1f} s; "
+          f"cohort build (load_cohort) {cohort_s:.1f} s; "
+          f"{counts['supersteps']} supersteps, {counts['val_forwards']} "
+          f"validation forwards; kernel launches {launches} = {expected} "
+          f"expected; C++ frames {want} and 0 fallbacks; the compressed "
+          f"series equal their pure-Python decodes bit for bit "
+          f"({check_s:.1f} s in worker processes)")
+    for r in rows:
+        print(f"  epoch {r['epoch']}: {r['epoch_seconds']:.2f} s, "
+              f"{r['samples_per_sec']:.1f} samples/s, train loss "
+              f"{r['train_loss']:.4f}, val loss {r['val_loss']:.4f}, train C "
+              f"{r['train_c']:.3f}, val C {r['val_c']:.3f}")
+
+    base["Hyperparameters"]["model_weights"] = str(
+        out / "best_surv_model.npz")
+    base["Preprocessing"] = {f"{s}_uid_location": str(run_dir /
+                                                      f"{s}_uids.txt")
+                             for s in ("train", "val", "test")}
+    infer_config = workdir / "dicom_infer.json"
+    infer_config.write_text(json.dumps(base))
+    infer_out = workdir / "dicom_infer"
+    counts = {}
+    rc, infer_wall, infer_launches = run_cli(fd, [
+        "--inference", "--images", "--preop", "--survival", "--blend",
+        "--no_gradcam", "--config", str(infer_config), "--output_path",
+        str(infer_out)], run_dir, [
+            mock.patch.object(evaluate, "survival_eval_step", counted(
+                evaluate.survival_eval_step, counts, "eval_steps"))])
+    test_uids = (run_dir / "test_uids.txt").read_text().split()
+    header, preds = (read_csv_rows(infer_out / "survival_model_predictions.csv")
+                     if rc == 0 else ("", np.zeros((0, 7))))
+    if rc != 0 or infer_launches != per_forward * counts.get("eval_steps", 0) \
+            or preds.shape != (len(test_uids), 7) \
+            or not np.isfinite(preds).all():
+        raise AssertionError(f"dicom --inference: rc {rc}, {infer_launches} "
+                             f"launches, predictions {preds.shape}")
+    print(f"dicom cli --inference --survival --no_gradcam: rc {rc}, "
+          f"{infer_wall:.1f} s for {len(test_uids)} test patients, "
+          f"{infer_launches} launches")
+    return {"launches": launches, "write_s": write_s, "cohort_s": cohort_s,
+            "root": root}
+
+
+
+class FakeS3:
+    """A stand-in for boto3 (not installed on the card's machine), backed by
+    a local directory: ``resource("s3").Bucket(b)`` is ``root/b``, with the
+    calls utils/store.py makes (``Object(key).download_fileobj``,
+    ``download_file``, ``objects.filter(Prefix=)``, ``upload_file``, whose
+    keys are logged in ``uploads``). A stub for this script, not a
+    feature."""
+
+    class _Object:
+        def __init__(self, path: Path, key: str):
+            self.path, self.key = path, key
+
+        def download_fileobj(self, f):
+            f.write(self.path.read_bytes())
+
+    class _Bucket:
+        def __init__(self, fake, name: str):
+            self.root, self.name, self.fake = fake.root / name, name, fake
+            self.objects = self
+
+        def Object(self, key):  # noqa: N802 (boto3's name)
+            return FakeS3._Object(self.root / key, key)
+
+        def filter(self, Prefix=""):  # noqa: N803
+            keys = sorted(p.relative_to(self.root).as_posix()
+                          for p in self.root.rglob("*") if p.is_file())
+            return [FakeS3._Object(self.root / k, k) for k in keys
+                    if k.startswith(Prefix)]
+
+        def download_file(self, key, path):
+            shutil.copyfile(self.root / key, path)
+
+        def upload_file(self, local, key):
+            (self.root / key).parent.mkdir(parents=True, exist_ok=True)
+            shutil.copyfile(local, self.root / key)
+            self.fake.uploads.append((self.name, key))
+
+    def __init__(self, root: Path):
+        self.root, self.uploads = root, []
+
+    def resource(self, kind):
+        assert kind == "s3"
+        return self
+
+    def Bucket(self, name):  # noqa: N802
+        return FakeS3._Bucket(self, name)
+
+
+def s3_cli_phase(fd, seed: int, workdir: Path, dicom_root: Path) -> dict:
+    """The flagship survival run from s3:// paths through a stubbed boto3,
+    its artifacts uploaded, and the s3:// DICOM manifest against the local
+    one (see the module docstring, phase 17)."""
+    from mmnn_sts_torch import pipeline
+    from mmnn_sts_torch.config import parse_config
+    from mmnn_sts_torch.data import images
+    from mmnn_sts_torch.models import build_model
+    from mmnn_sts_torch.train import checkpoint, evaluate, loop
+    from mmnn_sts_torch.utils import store
+
+    fake = FakeS3(workdir / "s3")
+    bucket = fake.root / S3_BUCKET
+    # the bucket's objects are hard links to the local trees (a fetch
+    # copies them, as a download writes a new file)
+    t0 = time.perf_counter()
+    shutil.copytree(workdir / "cohort", bucket / "cohort",
+                    copy_function=os.link)
+    (bucket / "splits").mkdir()
+    for name in ("train", "val", "test"):
+        shutil.copyfile(workdir / "run" / f"{name}_uids.txt",
+                        bucket / "splits" / f"{name}.txt")
+    shutil.copytree(dicom_root / "t1", bucket / "dicom" / "t1",
+                    copy_function=os.link)
+    copy_s = time.perf_counter() - t0
+    base = json.loads((workdir / "config.json").read_text())
+    uri = f"s3://{S3_BUCKET}"
+    base["Data"] = {"data_loc": f"{uri}/cohort/clinical.csv",
+                    "key_loc": f"{uri}/cohort/key.csv",
+                    "image_loc": f"{uri}/cohort", "bucket": S3_ARTIFACTS}
+    base["Preprocessing"] = {"output_dir": S3_PREFIX, **{
+        f"{s}_uid_location": f"{uri}/splits/{s}.txt"
+        for s in ("train", "val", "test")}}
+    config_path = workdir / "s3.json"
+    config_path.write_text(json.dumps(base))
+    run_dir, out = workdir / "s3_run", workdir / "s3_run" / "out"
+    run_dir.mkdir()
+    per_forward = sum(build_model(parse_config(str(config_path)), True, True,
+                                  False, True).image_model.block_config)
+
+    def stub():
+        """boto3 replaced by the stub, in sys.modules and in the store."""
+        return [mock.patch.dict(sys.modules, {"boto3": fake}),
+                mock.patch.object(store, "boto3", fake),
+                mock.patch.object(store, "HAVE_BOTO3", True)]
+
+    counts = {}
+    rc, wall, launches = run_cli(fd, [
+        "--images", "--preop", "--survival", "--blend", "--config",
+        str(config_path), "--epochs", str(S3_EPOCHS), "--output_path",
+        str(out)], run_dir, stub() + [
+            mock.patch.object(pipeline, "load_cohort", counted(
+                pipeline.load_cohort, counts, "cohort")),
+            mock.patch.object(loop, "survival_train_superstep", counted(
+                loop.survival_train_superstep, counts, "supersteps")),
+            mock.patch.object(evaluate, "survival_eval_step", counted(
+                evaluate.survival_eval_step, counts, "val_forwards"))])
+    expected = (counts.get("supersteps", 0) * TRAIN_MICRO
+                + counts.get("val_forwards", 0)) * per_forward
+    rows = [json.loads(x) for x in (out / "metrics.jsonl").read_text()
+            .splitlines()] if rc == 0 else []
+    uploaded = [k for b, k in fake.uploads if b == S3_ARTIFACTS]
+    want = [f"{S3_PREFIX}/{dest}" for local, dest in
+            store.train_artifact_names(True, True) if (out / local).exists()]
+    if rc != 0 or launches != expected or len(rows) != S3_EPOCHS \
+            or not np.isfinite([rows[0]["train_loss"],
+                                rows[0]["val_loss"]]).all() \
+            or uploaded != want or f"{S3_PREFIX}/model.npz" not in uploaded:
+        raise AssertionError(f"s3:// CLI run: rc {rc}, {launches} launches "
+                             f"(expected {expected}), rows {rows}, uploaded "
+                             f"{uploaded}, expected {want}")
+    blob = fake.root / S3_ARTIFACTS / S3_PREFIX / "model.npz"
+    if blob.read_bytes() != (out / "best_surv_model.npz").read_bytes():
+        raise AssertionError("the uploaded model.npz differs")
+    print(f"s3 cli run (every path s3://, boto3 stubbed): rc {rc}, "
+          f"{wall:.1f} s ({copy_s:.1f} s linking the cohorts into the "
+          f"stub's bucket before it); cohort build (load_cohort, fetching "
+          f"every object) {counts['cohort_s'][0]:.1f} s; "
+          f"{counts['supersteps']} supersteps, {launches} launches = "
+          f"{expected} expected; uploaded {uploaded}")
+
+    key = str(workdir / "cohort" / "key.csv")
+    t0 = time.perf_counter()
+    patches = stub()
+    for p in patches:
+        p.start()
+    try:
+        remote = images.build_manifest_dicom_s3(f"{uri}/dicom/t1/", key)
+    finally:
+        for p in reversed(patches):
+            p.stop()
+    manifest_s = time.perf_counter() - t0
+    local = images.build_manifest_dicom(str(dicom_root / "t1"), key)
+    same = [(r.anon_id, r.uid, r.format) for r in remote] \
+        == [(r.anon_id, r.uid, r.format) for r in local]
+    for r, want_r in zip(remote, local):
+        for part in ("image_path", "mask_path"):
+            a, b = Path(getattr(r, part)), Path(getattr(want_r, part))
+            names = sorted(os.listdir(a))
+            same = same and names == sorted(os.listdir(b)) and all(
+                (a / n).read_bytes() == (b / n).read_bytes() for n in names)
+    if not same or len(remote) != CLI_PATIENTS:
+        raise AssertionError(f"build_manifest_dicom_s3 gave {len(remote)} "
+                             "records unlike the local manifest's")
+    shutil.rmtree(Path(remote[0].image_path).parents[1], ignore_errors=True)
+    print(f"s3 dicom manifest (build_manifest_dicom_s3 over a copy of the "
+          f"T1 tree): {len(remote)} records equal to build_manifest_dicom's "
+          f"(anon ids, uids, every fetched file's bytes), {manifest_s:.1f} s")
+    return {"launches": launches, "uploaded": uploaded}
+
+
 def group_diffs(got: dict, want: dict) -> tuple[int, dict]:
     """(bit-equal tensors, {group: the largest |got - want| / max(1,
     |want|)}) of two same-keyed dicts; a group is a key's first word
@@ -3043,10 +3561,16 @@ def main(argv=None) -> int:
     print(f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
 
+    from concurrent.futures import ThreadPoolExecutor
+
     t0 = time.perf_counter()
-    libs = build.build_all()
-    print(f"build: {len(libs)} kernel libraries in "
-          f"{time.perf_counter() - t0:.1f} s")
+    with ThreadPoolExecutor(1) as ex:
+        # the host library of the cohort build (g++) beside the kernels
+        host = ex.submit(build.build_host, "mmnn_native")
+        libs = build.build_all()
+        host_lib = host.result()
+    print(f"build: {len(libs)} kernel libraries and the host library "
+          f"{host_lib.name} in {time.perf_counter() - t0:.1f} s")
     for lib in libs.values():
         log = lib.with_suffix(".log")
         if log.exists():
@@ -3093,6 +3617,10 @@ def main(argv=None) -> int:
         lap("bf16_cli_phase")
         wide_cli = wide_cli_phase(fd, args.seed, Path(tmp))
         lap("wide_cli_phase")
+        dicom_cli = dicom_cli_phase(fd, args.seed, Path(tmp))
+        lap("dicom_cli_phase")
+        s3_cli_phase(fd, args.seed, Path(tmp), dicom_cli["root"])
+        lap("s3_cli_phase")
 
     main_path = [r for r in rows if r["batch"] == 8 and r["dtype"] == "float32"]
     bf16_path = [r for r in rows

@@ -22,6 +22,10 @@ Grad-CAM attention maps unless ``--no_gradcam``, the prediction CSVs) with
 ``Hyperparameters.model_weights``; ``--lr_finder`` (``train/lr_finder``,
 where the JAX CLI runs it: after the split, the standardisation and
 ``--resume``); and ``--export_path`` (the servable of ``infer/export``).
+Cohorts may be NIfTI or DICOM (``Data.image_format``), local or under
+``s3://`` (with boto3); with ``Data.bucket`` set, training uploads its
+artifacts and survival inference its prediction CSV there, under
+``Preprocessing.output_dir``.
 ``--segmentation`` raises ``NotImplementedError`` naming its ROADMAP.md
 item.
 """
@@ -303,19 +307,26 @@ def main(argv=None) -> int:
             output_dir=args.output_path,
             seed=hp.seed,
             eval_chunk=cfg.tpu.eval_chunk_size,
+            bucket=cfg.data.bucket,
+            dest_prefix=cfg.preprocessing.output_dir,
             ties=hp.cox_ties,
         )
         if flags.survival:
             inference_survival(state, test_ds, icfg)
         else:
             inference_classification(state, test_ds, icfg)
-    elif flags.survival:
+        return 0
+
+    if flags.survival:
         train_survival(state, train_ds, val_ds, loop_cfg)
     else:
         train_classification(state, train_ds, val_ds, loop_cfg)
 
     if cfg.data.bucket:
-        # the JAX package's artifact upload, which without boto3 logs this
-        # and goes on
-        logger.info("Could not save to s3 bucket - no connection to S3")
+        # the artifacts' upload: best effort, failures logged
+        from .utils.store import train_artifact_names, upload_artifacts
+
+        upload_artifacts(cfg.data.bucket, args.output_path,
+                         train_artifact_names(flags.survival, flags.blend),
+                         cfg.preprocessing.output_dir)
     return 0

@@ -10,7 +10,7 @@ nibabel).
 * the writer emits float32 single-file NIfTI-1 with an identity affine in
   the sform.
 
-The JAX package's C++ decode path is not ported (ROADMAP.md).
+The C++ decode of the same files is in data/native.py (the cohort pool).
 """
 
 from __future__ import annotations

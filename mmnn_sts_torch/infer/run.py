@@ -45,6 +45,7 @@ from ..ops.metrics import (
 )
 from ..train.evaluate import classification_eval_split, survival_eval_split
 from ..utils.logging import get_logger
+from ..utils.store import upload_artifacts
 from .artifacts import save_probabilities_csv, save_survival_predictions_csv
 
 logger = get_logger()
@@ -57,8 +58,15 @@ class InferenceConfig:
     gradcam: bool = True
     output_dir: str = "."
     seed: int = 42
+    # write the prediction CSV (survival_model_predictions.csv or
+    # model_probabilities.csv)
+    save_preds: bool = True
     # forward chunk size; 0 = the whole split at once
     eval_chunk: int = 0
+    # the survival CSV's upload to s3://bucket/dest_prefix/ after it is
+    # written; an empty bucket uploads nothing
+    bucket: str = ""
+    dest_prefix: str = "models"
     # Cox tie handling of the forward's loss ("breslow" | "efron")
     ties: str = "breslow"
 
@@ -115,9 +123,14 @@ def inference_survival(state, ds: DeviceDataset, cfg: InferenceConfig):
     c_indices = c_indices_per_class(preds, events, durations)
     logger.info(f"Inference complete - C-Indices: {c_indices}")
     logger.info(f"Mean C-Index: {np.mean(c_indices)}")
-    save_survival_predictions_csv(
-        os.path.join(cfg.output_dir, "survival_model_predictions.csv"),
-        ds.uids, preds, events, durations)
+    if cfg.save_preds:
+        save_survival_predictions_csv(
+            os.path.join(cfg.output_dir, "survival_model_predictions.csv"),
+            ds.uids, preds, events, durations)
+        if cfg.bucket:
+            upload_artifacts(cfg.bucket, cfg.output_dir,
+                             ["survival_model_predictions.csv"],
+                             cfg.dest_prefix)
     return {"c_indices": c_indices, "preds": preds}
 
 
@@ -137,9 +150,10 @@ def inference_classification(state, ds: DeviceDataset,
 
     logger.info(f"{f1s}")
     logger.info(f"{np.nanmean(f1s)}")
-    save_probabilities_csv(
-        os.path.join(cfg.output_dir, "model_probabilities.csv"), ds.uids,
-        probs, labels)
+    if cfg.save_preds:
+        save_probabilities_csv(
+            os.path.join(cfg.output_dir, "model_probabilities.csv"), ds.uids,
+            probs, labels)
     return {"f1s": f1s, "probs": probs}
 
 

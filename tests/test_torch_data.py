@@ -9,10 +9,13 @@
   missing events and times); a time that ``FUtime`` cannot fill raises in
   both.
 * ``stratified_split`` gives identical UID lists at three seeds.
-* The image cohort equals the JAX package's numpy path
+* The image cohort's plain path (``build_image_cohort(...,
+  use_native=False)``) equals the JAX package's numpy path
   (``load_patient_volume(use_native=False)``) exactly, and its default path
-  (the C++ pool where it is built) within rtol/atol 1e-5, the tolerance
-  tests/test_native.py holds the pool to.
+  (the C++ pool) lies within rtol/atol 1e-5 of it, the tolerance
+  tests/test_native.py holds the pool to. Every comparison names the JAX
+  package's numpy path: whether its default path takes its own C++ pool
+  depends on whether that library was built in the test process.
 * ``EpochBatcher``'s indices and masks are identical over a grid of N,
   microbatch and accumulation; ``gather_superbatch`` and
   ``standardize_bundle`` agree exactly; ``make_split_dataset`` makes the
@@ -175,21 +178,36 @@ def test_stratified_split_matches_jax(tmp_path, seed):
                 == (tmp_path / "j" / name).read_text())
 
 
+@pytest.fixture
+def jax_numpy_path(monkeypatch):
+    """The JAX package's cohort build on its numpy path: its C++ library
+    reads as not built, whether or not a test built it in this process."""
+    from mmnn_sts_tpu.data import native as jnative
+
+    monkeypatch.setattr(jnative, "_load", lambda: None)
+
+
 def test_image_cohort_matches_jax(cohort):
     paths, _ = cohort
     dirs = (paths["t1"], paths["t2"])
     got = timages.build_image_cohort(dirs, paths["key"], (SIDE,) * 3, "fill")
-    want = jimages.build_image_cohort(dirs, paths["key"], (SIDE,) * 3, "fill")
-    np.testing.assert_array_equal(got.uids, want.uids)
-    assert got.volumes.shape == (N_COHORT, SIDE, SIDE, SIDE, 2)
-    np.testing.assert_allclose(got.volumes, want.volumes, **COHORT_TOL)
+    plain = timages.build_image_cohort(dirs, paths["key"], (SIDE,) * 3,
+                                       "fill", use_native=False)
     records = [{r.anon_id: r for r in jimages.build_manifest(d, paths["key"])}
                for d in dirs]
-    for i, anon in enumerate(sorted(records[0])):
+    anon_ids = sorted(records[0])
+    np.testing.assert_array_equal(
+        got.uids, [records[0][a].uid for a in anon_ids])
+    np.testing.assert_array_equal(plain.uids, got.uids)
+    assert got.volumes.shape == (N_COHORT, SIDE, SIDE, SIDE, 2)
+    for i, anon in enumerate(anon_ids):
         for c in range(2):
             numpy_path = jimages.load_patient_volume(
                 records[c][anon], (SIDE,) * 3, "fill", use_native=False)
-            np.testing.assert_array_equal(got.volumes[i, ..., c], numpy_path)
+            np.testing.assert_array_equal(plain.volumes[i, ..., c],
+                                          numpy_path)
+            np.testing.assert_allclose(got.volumes[i, ..., c], numpy_path,
+                                       **COHORT_TOL)
     for zero_slices in ("crop", "none"):
         rec = records[0][sorted(records[0])[0]]
         image = tnifti.load_nifti(rec.image_path, np.float32)
@@ -197,17 +215,6 @@ def test_image_cohort_matches_jax(cohort):
         np.testing.assert_array_equal(
             timages.apply_mask(image, mask, zero_slices),
             jimages.apply_mask(image, mask, zero_slices))
-
-
-def test_dicom_and_remote_cohorts_raise(cohort):
-    from mmnn_sts_torch.exceptions import ConfigurationError
-
-    paths, _ = cohort
-    with pytest.raises(ConfigurationError, match="ROADMAP"):
-        timages.build_image_cohort([paths["t1"]], paths["key"],
-                                   image_format="dicom")
-    with pytest.raises(ConfigurationError, match="ROADMAP"):
-        timages.build_image_cohort(["s3://bucket/t1"], paths["key"])
 
 
 def test_radiomics_matches_jax(tmp_path):
@@ -287,7 +294,8 @@ def test_standardize_bundle_matches_jax(cohort):
                                   want.clinical.predictors)
 
 
-def test_make_split_dataset_matches_jax_and_needs_a_device(cohort):
+def test_make_split_dataset_matches_jax_and_needs_a_device(cohort,
+                                                          jax_numpy_path):
     """Device-resident and (``TPU.device_resident_dataset: false``)
     host-resident, each against the JAX package's."""
     from mmnn_sts_torch.data.streaming import HostDataset
