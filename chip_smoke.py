@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (mmnn_sts_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py [--seed 0] [--phases kernel_phase,cli_phase,...]
 
 Phases; any failure is an uncaught exception and a nonzero exit:
 
@@ -69,13 +69,13 @@ Phases; any failure is an uncaught exception and a nonzero exit:
    alone moves them. One
    superstep with a ragged-tail mask: a finite loss and finite gradients.
    Then, with cuDNN's TF32 on (PyTorch's
-   default) and dropout 0.2 as configured: a warm-up and 6 timed
+   default) and dropout 0.2 as configured: a warm-up and 3 timed
    supersteps (CUDA events; volumes/s, peak memory), two validation steps
    with their C-indices and two blend updates. The first and the last
    superstep draw the same dropout masks (the generator is rewound), and
    the last one's loss on the fixed batch must be below the first's. Then
    the same superstep with the training augmentation on (augment=True, as
-   the run trains): a warm-up and 6 timed supersteps (volumes/s, peak
+   the run trains): a warm-up and 3 timed supersteps (volumes/s, peak
    memory) and one profiled superstep (device busy share, kernel time by
    kind, the fused kernel's and the backward's shares, the augmentation's
    device ms and launches: its calls run inside a profiler range).
@@ -87,7 +87,7 @@ Phases; any failure is an uncaught exception and a nonzero exit:
    of K (the control): the kernel must launch 464 times, every call with
    bfloat16 x and w, and the update (new - old over all parameters) with
    the kernel must lie within BF16_CONTROL_FACTOR x the control's relative
-   L2 distance of the plain op's. Then a warm-up and 6 timed supersteps
+   L2 distance of the plain op's. Then a warm-up and 3 timed supersteps
    (volumes/s, peak memory); the graphed bf16 superstep is profiled in
    phase 10.
 8. Families: every other image model the registry builds (tinycnn,
@@ -96,9 +96,9 @@ Phases; any failure is an uncaught exception and a nonzero exit:
    random weights from --seed) with cuDNN's TF32 off: an eval forward of
    8 (finite (8, 2); the kernel launched 58 / 58 / 82 / 98 / 130 times for
    the DenseNets, 0 for the others), one augmented survival superstep of
-   2 x 8 with the kernel and one with the plain op patched in from the
+   1 x 8 with the kernel and one with the plain op patched in from the
    same state and draws (loss, predictions, every summed gradient and
-   running statistic within 1e-2 x max(1, |plain|); launches 2 x the
+   running statistic within 1e-2 x max(1, |plain|); launches the
    forward's; the peak memory), a timed superstep, and a bfloat16 eval
    forward (finite, every kernel call with bfloat16 x and w).
 9. Remat: the flagship superstep (8 x 8, dropout 0.2, augment off, TF32
@@ -114,13 +114,14 @@ Phases; any failure is an uncaught exception and a nonzero exit:
    (its reserved memory). Then 3 supersteps through survival_train_epoch
    (graphed: the first is the warm-up, the second is captured and
    replayed, the third a replay), each beside the same superstep run
-   eagerly twice (CUDA events: the eager volumes/s), all set to the
-   graphed state first: the losses, predictions, parameters, running
-   statistics and momentum bit-equal to the first eager run, or within
-   1e-5 x max(1, |eager|), the generator's state and the step equal (the
-   second eager run, the control, is printed beside it); the
+   eagerly (CUDA events: the eager volumes/s; in float32 + aug twice),
+   all set to the graphed state first: the losses, predictions,
+   parameters, running statistics and momentum bit-equal to the first
+   eager run, or within 1e-5 x max(1, |eager|), the generator's state and
+   the step equal (in float32 + aug the second eager run, the control, is
+   printed beside it); the
    kernel launched 464 times while the superstep is captured (920 with
-   remat), the body bound once. Then 12 replays timed (volumes/s,
+   remat), the body bound once. Then 6 replays timed (volumes/s,
    reserved memory), the capture's seconds, and one replay profiled (busy
    share, the kernel's device time).
 11. CLI: the survival run as a user starts it, at full width. A synthetic
@@ -186,14 +187,14 @@ Phases; any failure is an uncaught exception and a nonzero exit:
 14. The CLI in bfloat16, on the CLI phase's cohort: a JSON config with
    TPU.compute_dtype bfloat16, 2 epochs (rc 0, finite losses, launches =
    supersteps x 464 + validation forwards x 58, every kernel call with
-   bfloat16 x and w, the best .npz loading strictly), the export as a
-   subprocess served on the card (the spec records bfloat16; a batch-3
+   bfloat16 x and w, the best .npz loading strictly), the export (in
+   process) served on the card (the spec records bfloat16; a batch-3
    request answers a finite float32 (3, 2) in 58 bfloat16 launches), then
    --inference --survival with Grad-CAM on its test patients (att maps in
    [0, 1] with a max above 0.5, launches = 58 x (eval steps + 2 x
    patients)).
 15. The slice's CLI paths, on the CLI phase's cohort: --images --survival
-   --split with densenet201 for 2 epochs (rc 0, finite losses, launches =
+   --split with densenet201 for 1 epoch (rc 0, finite losses, launches =
    supersteps x 8 x 98 + validation forwards x 98, the best .npz loading
    strictly), its --export_path served on the card (98 launches, a finite
    (3, 2)); --images --preop --survival --blend with tinycnn for 1 epoch
@@ -202,14 +203,15 @@ Phases; any failure is an uncaught exception and a nonzero exit:
    config (100 steps, 5,800 launches, lrs[0] = 1e-7 in float32, a finite
    min-loss rate, lr_finder.png only where matplotlib is installed).
 16. The flagship run from a DICOM cohort (Data.image_format: dicom), at
-   full width: the CLI phase's patients (its key and clinical table)
-   written by this script as DICOM trees, per modality and patient an
-   image/ series of CLI_VOLUME[0] single-frame .dcm slices (12-bit samples,
-   with geometry) and a mask/ multiframe .dcm on the same grid; all
+   full width: DICOM_PATIENTS of the CLI phase's patients (its key and
+   clinical table) written by this script as DICOM trees, per modality
+   and patient an image/ series of CLI_VOLUME[0] single-frame .dcm slices
+   (12-bit samples, with geometry) and a mask/ multiframe .dcm on the
+   same grid; all
    explicit VR little endian but for four patients, one each in RLE,
    JPEG Lossless SV1, JPEG-LS and JPEG 2000 (T1 only), encoded by the
    port's encoders in worker processes. --images --preop --survival
-   --blend --split --epochs 2: rc 0, finite losses, C-indices in [0, 1],
+   --blend --split --epochs 1: rc 0, finite losses, C-indices in [0, 1],
    launches = supersteps x 464 + validation forwards x 58, the best .npz
    loading strictly; the C++ decoders' frame counts equal the JPEG-LS,
    JPEG-Lossless and J2K series' slices, with no frame handed to Python;
@@ -224,10 +226,52 @@ Phases; any failure is an uncaught exception and a nonzero exit:
    above), the uploaded keys equal to train_artifact_names' under
    Preprocessing.output_dir for the artifacts written, the uploaded
    model.npz equal to the best .npz; then build_manifest_dicom_s3 over a
-   copy of phase 16's T1 tree gives build_manifest_dicom's records (anon
-   ids, uids, every fetched file's bytes).
-18. Prints the kernels' JSON line, the card's line, and last
+   copy of S3_DICOM_PATIENTS patients of phase 16's T1 tree gives
+   build_manifest_dicom's records of the same patients (anon ids, uids,
+   every fetched file's bytes).
+18. The segmentation cohort builder, inside phase 11: build_segmentation_cohort
+   on the CLI cohort's T1 tree at 64^3 (96 uids equal to the image
+   cohort's, images and masks (96, 64, 64, 64, 1), masks in {0, 1}).
+19. Planar (ImageModel.spatial_dims 2), at Config() widths with random
+   weights from --seed and cuDNN's TF32 off: the flagship blend model
+   (DenseNet121, 12 features, the 11-input clinical MLP), tinycnn,
+   monaidensenet, densenet169/201/264 and seresnet50 on (8, 64, 64, 2):
+   the eval forward on the card against the CPU (within 1e-2 x max(1,
+   |CPU|); launches 58 / 58 / 82 / 98 / 130 per DenseNet forward, 0 for the
+   others), a train superstep of one microbatch (the Cox loss's backward
+   and one SGD step) with the kernel against the plain op, a bfloat16 eval
+   forward and superstep (every kernel call bfloat16); DenseNet121's 2D
+   forward at (8, 256, 256, 2) (block 1 at M = 32,768) against the plain
+   op (1e-3); the kernel against the plain version at every (M, K, dtype)
+   those runs called it with (check_call), and DenseNet121's 58 2D calls
+   at (8, 64, 64) timed in both dtypes beside the plain version, the
+   product alone and the bound; the flagship's 2D Grad-CAM maps on the
+   card against the CPU (1e-2), in [0, 1].
+20. Mesh (TPU.mesh_shape's data axis), the flagship augmented superstep 8 x
+   8 at 64^3 with TF32 off and cuDNN deterministic: (a) one rank over NCCL
+   in this process (a FileStore), eager and graphed (survival_train_epoch:
+   warm-up, capture and replay, replay), each bit-equal to the run without
+   a process group in every tensor of the state; the collectives a
+   superstep and the capture's launches (464); (b) two ranks sharing the
+   card over gloo (this script with --mesh-rank, spawned twice; gloo
+   stages CUDA tensors through the host, checked with all_gather,
+   all_reduce and broadcast), one eager superstep at microbatch 8, four
+   rows a rank: the ranks bit-equal to each other; against one process on
+   the card, the superstep's losses and predictions (before any update)
+   within 1e-5 in relative L2 and the update within 4 x its one-ulp
+   control; 464 launches a rank a superstep; (c) python -m
+   torch.distributed.run --nproc_per_node 2 -m mmnn_sts_torch --images
+   --preop --survival --blend on the CLI phase's cohort, its split's first
+   16 training patients (one masked superstep) and its validation
+   patients, for 1 epoch over gloo on the card: rc 0, both ranks logged
+   gloo, one metrics row (rank 0 alone writes), finite losses, C-indices
+   in [0, 1], the .npz loads strictly.
+   (b) and (c) run in their own processes beside (a).
+21. Prints the kernels' JSON line, the card's line, and last
    {"ok": true, "device": {...}}.
+
+``--phases a,b`` runs only the named phases and the phases they need
+(PHASES); without it every phase runs.
 
 Per-shape kernel results go to chiprun_out/chip_smoke_kernels.jsonl, the
 backward's to chiprun_out/chip_smoke_backward.jsonl.
@@ -278,7 +322,7 @@ PROFILE_KINDS = (
 )
 # the flagship superstep: A microbatches of B volumes (SUPER_BATCH_SIZE 64)
 TRAIN_MICRO, TRAIN_BATCH = 8, 8
-TRAIN_TIMED = 6  # timed supersteps after one warm-up
+TRAIN_TIMED = 3  # timed supersteps after one warm-up
 TRAIN_LR = 1e-2  # OneCycle peak over the short run
 # kernel vs plain-op superstep, x max(1, |plain|) per tensor: roundoff
 # alone exceeds 1e-3 (train_phase's control, the plain op with its product
@@ -308,8 +352,13 @@ COHORT_TOLERANCE = 1e-5
 # CLI run; the s3:// run's epochs and bucket names
 DICOM_COMPRESSED = (("rle", ("t1", "t2")), ("jpeg_lossless", ("t1", "t2")),
                     ("jpeg_ls", ("t1", "t2")), ("j2k", ("t1",)))
-DICOM_EPOCHS, S3_EPOCHS = 2, 1
+DICOM_EPOCHS, S3_EPOCHS = 1, 1
+# the DICOM tree holds the first DICOM_PATIENTS of the CLI phase's patients
+DICOM_PATIENTS = 48
 S3_BUCKET, S3_ARTIFACTS, S3_PREFIX = "cohorts", "artifacts", "models/smoke"
+# patients of the T1 DICOM tree in the s3 manifest's check (each fetched
+# file's bytes are compared)
+S3_DICOM_PATIENTS = 16
 # the wider DenseNets whose bottleneck shapes the kernel is checked at
 WIDE_MODELS = ("densenet169", "densenet201", "densenet264")
 # every image model name beyond the flagship's, each driven at full width:
@@ -317,17 +366,18 @@ WIDE_MODELS = ("densenet169", "densenet201", "densenet264")
 # the kernel and with the plain op, a bfloat16 eval forward
 FAMILIES = ("tinycnn", "monaidensenet", "densenet169", "densenet201",
             "densenet264", "seresnet50", "r3d_18")
-FAMILY_MICRO = 2
+FAMILY_MICRO = 1
 # the image-only CLI run of the widest-path slice, and the LR range test's
 # default number of steps
-WIDE_CLI_MODEL, WIDE_CLI_EPOCHS, LR_SWEEP_STEPS = "densenet201", 2, 100
+WIDE_CLI_MODEL, WIDE_CLI_EPOCHS, LR_SWEEP_STEPS = "densenet201", 1, 100
 # TPU.fused_epoch: supersteps held graphed against eager, epochs of that
 # many replays timed after them, the resident split's volumes; (name,
 # compute dtype, remat, augment) of each run;
 # graphed vs eager x max(1, |eager|) per tensor
-FUSED_STEPS, FUSED_TIMED_EPOCHS = 3, 4
-# eager runs of each compared superstep (the first held against, the
-# second the control), each timed
+FUSED_STEPS, FUSED_TIMED_EPOCHS = 3, 2
+# eager runs of each compared superstep of the first run (the first held
+# against, the second the control; the other runs take the first), each
+# timed
 FUSED_EAGER = 2
 FUSED_SPLIT = 128
 FUSED_RUNS = (("fp32 + aug", "float32", False, True),
@@ -673,9 +723,9 @@ def random_flat_weights(model, seed: int, to_jax_flat) -> dict:
     flat = {}
     for key, v in to_jax_flat(model.state_dict(), layout="unfused").items():
         leaf = key.rsplit("/", 1)[-1]
-        if leaf == "kernel":  # conv (k,k,k,I,O) or dense (I,O): fan-in scale
+        if leaf == "kernel":  # conv (k,k,[k,]I,O) or dense (I,O): fan-in
             fan_in = int(np.prod(v.shape[:-1]))
-            gain = 2.0 if v.ndim == 5 else 1.0
+            gain = 2.0 if v.ndim >= 4 else 1.0
             v = rng.normal(0.0, (gain / fan_in) ** 0.5, v.shape)
         elif leaf in ("scale", "var"):
             v = rng.uniform(0.8, 1.2, v.shape)
@@ -1463,6 +1513,24 @@ def cli_phase(fd, seed: int, workdir: Path) -> dict:
           f"pool {pooled} patients a modality, 0 fallbacks; max |pool - "
           f"plain| {np.abs(pool.volumes - plain.volumes).max():.3g} "
           f"(<= {COHORT_TOLERANCE:g} x (1 + |plain|))")
+    # the segmentation cohort builder on the same patients (host only)
+    t0 = time.perf_counter()
+    seg_images, seg_masks = images.build_segmentation_cohort(
+        dirs[0], str(paths["key"]), (CLI_SIDE,) * 3)
+    seg_s = time.perf_counter() - t0
+    shape = (CLI_PATIENTS,) + (CLI_SIDE,) * 3 + (1,)
+    if not (np.array_equal(seg_images.uids, pool.uids)
+            and np.array_equal(seg_masks.uids, pool.uids)
+            and seg_images.volumes.shape == seg_masks.volumes.shape == shape
+            and set(np.unique(seg_masks.volumes)) <= {0.0, 1.0}):
+        raise AssertionError(
+            f"build_segmentation_cohort: {seg_images.volumes.shape}, "
+            f"{seg_masks.volumes.shape}, mask values "
+            f"{np.unique(seg_masks.volumes)[:5]}, uids equal "
+            f"{np.array_equal(seg_images.uids, pool.uids)}")
+    print(f"cli segmentation cohort (build_segmentation_cohort, T1): "
+          f"{len(seg_images.uids)} uids equal to the image cohort's, images "
+          f"and masks {shape}, masks in {{0, 1}}, {seg_s:.2f} s")
     uid_lists = {name: (run_dir / f"{name}_uids.txt").read_text().split()
                  for name in ("train", "val", "test")}
     if sum(len(v) for v in uid_lists.values()) != CLI_PATIENTS:
@@ -2299,17 +2367,13 @@ def bf16_cli_phase(fd, seed: int, workdir: Path) -> dict:
     trained = workdir / "trained_bf16.json"
     trained.write_text(json.dumps(config))
     artifact = workdir / "model_bf16.pt"
-    t0 = time.perf_counter()
-    res = subprocess.run(
-        [sys.executable, "-m", "mmnn_sts_torch", "--images", "--preop",
-         "--survival", "--blend", "--config", str(trained), "--output_path",
-         str(out), "--export_path", str(artifact), "--device", CLI_DEVICE],
-        cwd=run_dir, env={**os.environ, "PYTHONPATH": str(REPO)},
-        capture_output=True, text=True, timeout=600)
-    if res.returncode != 0:
-        raise AssertionError(f"bf16 --export_path failed: "
-                             f"{res.stderr[-3000:]}")
-    export_s = time.perf_counter() - t0
+    # in process (cli_phase runs the export as a subprocess)
+    rc, export_s, _ = run_cli(fd, [
+        "--images", "--preop", "--survival", "--blend", "--config",
+        str(trained), "--output_path", str(out), "--export_path",
+        str(artifact)], run_dir, [])
+    if rc != 0:
+        raise AssertionError(f"bf16 --export_path returned {rc}")
     served = ServingModel(str(artifact), device=CLI_DEVICE)
     rng = np.random.default_rng(seed + 6)
     seen = set()
@@ -2326,8 +2390,8 @@ def bf16_cli_phase(fd, seed: int, workdir: Path) -> dict:
             or not np.isfinite(answer).all() or served_launches != per_forward:
         raise AssertionError(f"bf16 servable: spec {served.spec}, answer "
                              f"{answer!r}, launches {served_launches}")
-    print(f"bf16 export (python3 -m mmnn_sts_torch --export_path, a "
-          f"subprocess): {export_s:.1f} s; spec compute_dtype "
+    print(f"bf16 export (cli.main --export_path, in process): "
+          f"{export_s:.1f} s; spec compute_dtype "
           f"{served.spec['compute_dtype']}; ServingModel on the card, batch 3,"
           f" {served_launches} launches with bfloat16 x and w: float32 "
           f"{answer.tolist()}")
@@ -2641,9 +2705,9 @@ def process_pool():
 
 
 def write_dicom_cohort(root: Path, cohort: Path, seed: int) -> dict:
-    """The CLI phase's patients (its key and clinical table) as a DICOM
-    tree: root/{t1,t2}/<anon>/image/s###.dcm (one slice each of a
-    CLI_VOLUME volume: squared normals x 500 as 12-bit samples) and
+    """The CLI phase's first DICOM_PATIENTS patients (its key and clinical
+    table) as a DICOM tree: root/{t1,t2}/<anon>/image/s###.dcm (one slice
+    each of a CLI_VOLUME volume: squared normals x 500 as 12-bit samples) and
     root/{t1,t2}/<anon>/mask/mask.dcm (a multiframe 0/255 box on the same
     grid). The first patients of the key take DICOM_COMPRESSED's syntaxes,
     one each, in the modalities listed; their frames are encoded by the
@@ -2657,7 +2721,7 @@ def write_dicom_cohort(root: Path, cohort: Path, seed: int) -> dict:
                 "jpeg_lossless": dicom.JPEG_LOSSLESS_SV1,
                 "jpeg_ls": dicom.JPEG_LS_LOSSLESS, "j2k": dicom.J2K_LOSSLESS}
     with open(cohort / "key.csv", newline="") as f:
-        anon = [row[0] for row in list(csv.reader(f))[1:]]
+        anon = [row[0] for row in list(csv.reader(f))[1:]][:DICOM_PATIENTS]
     rng = np.random.default_rng(seed)
     mask = np.zeros(CLI_VOLUME, np.uint16)
     mask[8:-8, 8:-8, 6:-6] = 255
@@ -2711,7 +2775,7 @@ def dicom_cli_phase(fd, seed: int, workdir: Path) -> dict:
     t0 = time.perf_counter()
     series = write_dicom_cohort(root, cohort, seed + 10)
     write_s = time.perf_counter() - t0
-    print(f"dicom cohort written ({CLI_PATIENTS} patients x 2 modalities, "
+    print(f"dicom cohort written ({DICOM_PATIENTS} patients x 2 modalities, "
           f"{CLI_VOLUME[0]} slices of {CLI_VOLUME[1:]} each and a multiframe "
           f"mask; compressed: {sorted(series)}): {write_s:.1f} s")
     base = json.loads((workdir / "config.json").read_text())
@@ -2885,8 +2949,14 @@ def s3_cli_phase(fd, seed: int, workdir: Path, dicom_root: Path) -> dict:
     for name in ("train", "val", "test"):
         shutil.copyfile(workdir / "run" / f"{name}_uids.txt",
                         bucket / "splits" / f"{name}.txt")
-    shutil.copytree(dicom_root / "t1", bucket / "dicom" / "t1",
-                    copy_function=os.link)
+    # the DICOM manifest's check takes S3_DICOM_PATIENTS of the T1 tree's
+    # patients, in the bucket and in a local tree of the same patients
+    subset = workdir / "dicom_subset" / "t1"
+    for patient in sorted(p.name for p in (dicom_root / "t1").iterdir())[
+            :S3_DICOM_PATIENTS]:
+        for tree in (bucket / "dicom" / "t1", subset):
+            shutil.copytree(dicom_root / "t1" / patient, tree / patient,
+                            copy_function=os.link)
     copy_s = time.perf_counter() - t0
     base = json.loads((workdir / "config.json").read_text())
     uri = f"s3://{S3_BUCKET}"
@@ -2955,7 +3025,7 @@ def s3_cli_phase(fd, seed: int, workdir: Path, dicom_root: Path) -> dict:
         for p in reversed(patches):
             p.stop()
     manifest_s = time.perf_counter() - t0
-    local = images.build_manifest_dicom(str(dicom_root / "t1"), key)
+    local = images.build_manifest_dicom(str(subset), key)
     same = [(r.anon_id, r.uid, r.format) for r in remote] \
         == [(r.anon_id, r.uid, r.format) for r in local]
     for r, want_r in zip(remote, local):
@@ -2964,12 +3034,13 @@ def s3_cli_phase(fd, seed: int, workdir: Path, dicom_root: Path) -> dict:
             names = sorted(os.listdir(a))
             same = same and names == sorted(os.listdir(b)) and all(
                 (a / n).read_bytes() == (b / n).read_bytes() for n in names)
-    if not same or len(remote) != CLI_PATIENTS:
+    if not same or len(remote) != S3_DICOM_PATIENTS:
         raise AssertionError(f"build_manifest_dicom_s3 gave {len(remote)} "
                              "records unlike the local manifest's")
     shutil.rmtree(Path(remote[0].image_path).parents[1], ignore_errors=True)
-    print(f"s3 dicom manifest (build_manifest_dicom_s3 over a copy of the "
-          f"T1 tree): {len(remote)} records equal to build_manifest_dicom's "
+    print(f"s3 dicom manifest (build_manifest_dicom_s3 over a copy of "
+          f"{S3_DICOM_PATIENTS} patients of the T1 tree): {len(remote)} "
+          f"records equal to build_manifest_dicom's "
           f"(anon ids, uids, every fetched file's bytes), {manifest_s:.1f} s")
     return {"launches": launches, "uploaded": uploaded}
 
@@ -3071,9 +3142,10 @@ def fused_epoch_phase(fd, seed: int) -> dict:
           f"cudnn.allow_tf32={cudnn.allow_tf32} "
           f"cudnn.deterministic={cudnn.deterministic}; graphed "
           f"(survival_train_epoch, one superstep a call) against eager "
-          f"(survival_train_superstep) run {FUSED_EAGER} times (the first "
-          f"held against, the second the control), each set to the "
-          f"graphed state before each superstep")
+          f"(survival_train_superstep) run {FUSED_EAGER} times in "
+          f"{FUSED_RUNS[0][0]} (the first held against, the second the "
+          f"control) and once in the others, each set to the graphed state "
+          f"before each superstep")
 
     def new_state(cfg):
         model = build_model(cfg, **flags)
@@ -3145,7 +3217,9 @@ def fused_epoch_phase(fd, seed: int) -> dict:
         # first superstep is the warm-up, the second is captured and
         # replayed, the rest are replays
         # eager[0] is held against; eager[1] is the control
-        graphed, *eager = (new_state(cfg) for _ in range(1 + FUSED_EAGER))
+        # the control runs with the first configuration only
+        n_eager = FUSED_EAGER if name == FUSED_RUNS[0][0] else 1
+        graphed, *eager = (new_state(cfg) for _ in range(1 + n_eager))
         worst, noise, bad, equal, total, pairs = {}, {}, [], 0, 0, []
         fd.fused_bn_relu_matmul.launches = 0
         with mock.patch.object(graphs.BoundBody, "run", timed_run):
@@ -3221,7 +3295,7 @@ def fused_epoch_phase(fd, seed: int) -> dict:
             "graphed_peak_gib": graph_peak / 2**30,
             "busy": kinds["busy"] / wall, "max_rel_diff": max(worst.values()),
             "fused_kernel_ms": kinds.get("fused_bn_relu_matmul kernel", 0.0),
-            "control_max_rel_diff": max(noise.values())}
+            "control_max_rel_diff": max(noise.values(), default=None)}
         r = results[name]
         print(f"fused epoch {name}: {FUSED_STEPS} supersteps (the warm-up, "
               f"the capture, a replay), each from the graphed state: "
@@ -3231,7 +3305,8 @@ def fused_epoch_phase(fd, seed: int) -> dict:
               f"|graphed - eager| / max(1, |eager|) by group "
               + ", ".join(f"{g} {d:.2e}" for g, d in worst.items())
               + "; the control (the second eager run vs the first) "
-              + ", ".join(f"{g} {d:.2e}" for g, d in noise.items())
+              + (", ".join(f"{g} {d:.2e}" for g, d in noise.items())
+                 or "not run for this configuration")
               + f" (limit {FUSED_TOLERANCE:.0e}, the generator and step "
               f"equal); fused kernel launches {per_capture} per capture of "
               f"the superstep, {step.replays} replays; capture "
@@ -3531,10 +3606,753 @@ def fused_cli_phase(fd, seed: int, workdir: Path, per_epoch: int) -> dict:
             "stream_epoch_s": [r["epoch_seconds"] for r in stream_rows]}
 
 
+PLANAR_FAMILIES = ("densenet121", "tinycnn", "monaidensenet", "densenet169",
+                   "densenet201", "densenet264", "seresnet50")
+PLANAR_SIDE, PLANAR_LARGE = 64, 256  # the flagship's in-plane size; large M
+PLANAR_MAP_TOLERANCE = 1e-2
+
+
+def kernel_shapes(fd, seen: set):
+    """A patch of the kernel's wrapper that adds each call's (M, K, x
+    dtype) to ``seen`` (read the launches as ``kernel_dtypes`` says)."""
+    orig = fd.fused_bn_relu_matmul
+
+    @functools.wraps(orig)
+    def call(x, a, b, w):
+        seen.add((x.shape[0], x.shape[1], x.dtype))
+        return orig(x, a, b, w)
+
+    return mock.patch.object(fd, "fused_bn_relu_matmul", call)
+
+
+def planar_phase(fd, seed: int) -> dict:
+    """ImageModel.spatial_dims 2 at Config() widths (see the module
+    docstring, phase 19). Returns, by family, the launches per forward and
+    the eval forward's ms."""
+    from mmnn_sts_torch.config import Config
+    from mmnn_sts_torch.convert import load_jax_npz, to_jax_flat
+    from mmnn_sts_torch.models import build_model
+    from mmnn_sts_torch.ops.augment import eval_transform_batch
+    from mmnn_sts_torch.ops.gradcam import attention_maps
+    from mmnn_sts_torch.train.schedule import make_optimizer
+    from mmnn_sts_torch.train.state import create_train_state
+    from mmnn_sts_torch.train.steps import survival_train_superstep
+
+    rng = np.random.default_rng(seed + 19)
+    tf32, torch.backends.cudnn.allow_tf32 = \
+        torch.backends.cudnn.allow_tf32, False
+    print(f"planar: spatial_dims 2, Config() widths, inputs ({TRAIN_BATCH}, "
+          f"{PLANAR_SIDE}, {PLANAR_SIDE}, 2), random weights, cudnn."
+          f"allow_tf32={torch.backends.cudnn.allow_tf32}: eval forward on "
+          f"the card against the CPU and a train superstep (Cox loss "
+          f"backward, one SGD step) with the kernel against the plain op, "
+          f"within {TRAIN_TOLERANCE:.0e} x max(1, |reference|); bfloat16 "
+          f"eval and train forward")
+
+    def image_batch(batch, side):
+        vols = (rng.normal(size=(batch, side, side, 2)) ** 2 * 500).astype(
+            np.float32)
+        return eval_transform_batch(torch.from_numpy(vols))
+
+    def check(got, want, where, tol=TRAIN_TOLERANCE):
+        got, want = got.float().cpu(), want.float().cpu()
+        err = (got - want).abs().max().item()
+        limit = tol * max(1.0, want.abs().max().item())
+        if got.shape != want.shape or not err <= limit:
+            raise AssertionError(f"planar {where}: max |Δ| {err:.3e} > "
+                                 f"{limit:.3e}")
+        return err
+
+    shapes, results = set(), {}
+    for name in PLANAR_FAMILIES:
+        multimodal = name == "densenet121"  # the flagship blend model
+        flags = dict(images=True, preop=multimodal, postop=False,
+                     blend=multimodal)
+        cfg = Config()
+        cfg.image_model.name = name
+        cfg.image_model.spatial_dims = 2
+        cfg.image_model.spatial_size = [PLANAR_SIDE] * 2
+        base = build_model(cfg, **flags)
+        encoder = base.image_model if multimodal else base
+        per_forward = sum(getattr(encoder, "block_config", ()))
+        weights = random_flat_weights(base, seed, to_jax_flat)
+        load_jax_npz(base, weights)
+        image = image_batch(TRAIN_BATCH, PLANAR_SIDE)
+        inputs = ({"image": image, "clinical": torch.from_numpy(rng.normal(
+            size=(TRAIN_BATCH, 11)).astype(np.float32))}
+            if multimodal else image)
+
+        def on(x, device):
+            return ({k: v.to(device) for k, v in x.items()}
+                    if isinstance(x, dict) else x.to(device))
+
+        model = copy.deepcopy(base).to("cuda").eval()
+        fd.fused_bn_relu_matmul.launches = 0
+        with kernel_shapes(fd, shapes), torch.no_grad():
+            out = model(on(inputs, "cuda"))
+            torch.cuda.synchronize()
+            launched = fd.fused_bn_relu_matmul.launches
+        with torch.no_grad():
+            cpu = base.eval()(inputs)
+        if launched != per_forward or not torch.isfinite(out).all():
+            raise AssertionError(f"planar {name} eval forward: {launched} "
+                                 f"launches, not {per_forward}")
+        err = check(out, cpu, f"{name} eval, card vs CPU")
+        with torch.no_grad():
+            forward_ms = event_ms(lambda: model(on(inputs, "cuda")))
+
+        def superstep(state):
+            lead = {k: v[None] for k, v in on(inputs, "cuda").items()} \
+                if multimodal else on(inputs, "cuda")[None]
+            events = torch.from_numpy((rng_events < 0.7).astype(
+                np.float32)).cuda()
+            durations = torch.from_numpy(rng_durations).cuda()
+            return survival_train_superstep(state, lead, events, durations,
+                                            blend=multimodal, augment=False)
+
+        rng_events = rng.random((1, TRAIN_BATCH, 2))
+        rng_durations = rng.integers(1, 25, (1, TRAIN_BATCH, 2)).astype(
+            np.float32)
+
+        def new_state(cfg_):
+            m = build_model(cfg_, **flags)
+            load_jax_npz(m, weights)
+            m.to("cuda")
+            return create_train_state(m, *make_optimizer(
+                m.parameters(), TRAIN_LR, 4, 1), seed=seed)
+
+        state = new_state(cfg)
+        fd.fused_bn_relu_matmul.launches = 0
+        with kernel_shapes(fd, shapes):
+            got = superstep_tensors(superstep(state), state.model)
+            step_launches = fd.fused_bn_relu_matmul.launches
+        plain = new_state(cfg)
+        with mock.patch.object(fd, "fused_bn_relu_matmul",
+                               fd.fused_bn_relu_matmul_reference):
+            want = superstep_tensors(superstep(plain), plain.model)
+        dev = deviations(got, want)
+        bad = [(r, n) for r, n in dev if not r <= 1.0]
+        if bad or step_launches != per_forward:
+            raise AssertionError(f"planar {name} superstep, kernel vs plain "
+                                 f"op: {sorted(bad)[-5:]}; {step_launches} "
+                                 f"launches")
+        del plain, want, got
+
+        cfg16 = copy.deepcopy(cfg)
+        cfg16.tpu.compute_dtype = "bfloat16"
+        state16 = new_state(cfg16)
+        seen = set()
+        with kernel_dtypes(fd, seen), kernel_shapes(fd, shapes):
+            with torch.no_grad():
+                out16 = state16.model.eval()(on(inputs, "cuda"))
+            aux16 = superstep(state16)
+        if per_forward:
+            check_bf16_calls(seen, f"planar {name} bf16")
+        if not (torch.isfinite(out16.float()).all()
+                and torch.isfinite(aux16["loss"])):
+            raise AssertionError(f"planar {name} bf16: not finite")
+        results[name] = {"per_forward": launched, "forward_ms": forward_ms}
+        print(f"  {name}: eval forward {tuple(out.shape)} in {launched} "
+              f"launches, {forward_ms:.2f} ms (CUDA events), card vs CPU "
+              f"max |Δ| {err:.2e}; superstep {step_launches} launches, "
+              f"kernel vs plain largest {max(dev)[0]:.1%} of the limit; "
+              f"bf16 eval and superstep finite"
+              + (", every call bf16" if per_forward else ""))
+        del state, state16, model
+        torch.cuda.empty_cache()
+
+    # large M: block 1's bottlenecks at M = 8 x 64^2
+    cfg = Config()
+    cfg.image_model.spatial_dims = 2
+    base = build_model(cfg, images=True, preop=False, postop=False,
+                       blend=False)
+    load_jax_npz(base, random_flat_weights(base, seed, to_jax_flat))
+    model = base.to("cuda").eval()
+    image = image_batch(TRAIN_BATCH, PLANAR_LARGE).cuda()
+    fd.fused_bn_relu_matmul.launches = 0
+    with kernel_shapes(fd, shapes), torch.no_grad():
+        out = model(image)
+        torch.cuda.synchronize()
+        launched = fd.fused_bn_relu_matmul.launches
+    with torch.no_grad(), mock.patch.object(
+            fd, "fused_bn_relu_matmul", fd.fused_bn_relu_matmul_reference):
+        want = model(image)
+    large_err = check(out, want, "densenet121 at 256^2, kernel vs plain",
+                      1e-3)
+    with torch.no_grad():
+        large_ms = event_ms(lambda: model(image))
+    if launched != 58:
+        raise AssertionError(f"planar 256^2 forward: {launched} launches")
+    print(f"  densenet121 at ({TRAIN_BATCH}, {PLANAR_LARGE}, {PLANAR_LARGE}, "
+          f"2): 58 launches (block 1 M = "
+          f"{TRAIN_BATCH * (PLANAR_LARGE // 4) ** 2}), kernel vs plain max "
+          f"|Δ| {large_err:.2e}, {large_ms:.2f} ms (CUDA events)")
+    del model, base
+
+    # the kernel against the plain version at every 2D shape it was called
+    gen = torch.Generator(device="cuda").manual_seed(seed + 19)
+    # DenseNet121's 58 2D bottlenecks at (8, 64, 64) timed as kernel_phase
+    # times the 3D ones (sums over the calls)
+    from mmnn_sts_torch.models.densenet import bottleneck_shapes, densenet121
+
+    timed = {}
+    for dtype_name, dtype in (("float32", torch.float32),
+                              ("bfloat16", torch.bfloat16)):
+        tot = dict(ms=0.0, plain_ms=0.0, gemm_ms=0.0, bound_ms=0.0)
+        for _, m, k in bottleneck_shapes(densenet121(spatial_dims=2),
+                                         TRAIN_BATCH, PLANAR_SIDE):
+            x, a, b, w = operands(gen, m, k, dtype)
+            h = torch.relu(x.float() * a + b).to(dtype)
+            tot["ms"] += time_calls(
+                lambda: fd.fused_bn_relu_matmul(x, a, b, w))[0]
+            tot["plain_ms"] += time_calls(
+                lambda: fd.fused_bn_relu_matmul_reference(x, a, b, w))[0]
+            tot["gemm_ms"] += time_calls(lambda: torch.matmul(h, w))[0]
+            tot["bound_ms"] += bound_ms(m, k, BOTTLENECK_OUT, dtype_name)[0]
+        timed[dtype_name] = tot
+        print(f"  2D kernel {dtype_name}, DenseNet121's 58 calls at "
+              f"({TRAIN_BATCH}, {PLANAR_SIDE}, {PLANAR_SIDE}) (M 2,048 .. 32;"
+              f" device ms, calls queued behind a sleep): kernel "
+              f"{tot['ms']:.4f}, plain {tot['plain_ms']:.4f}, the product "
+              f"alone {tot['gemm_ms']:.4f}, bound {tot['bound_ms']:.4f}")
+    worst = {}
+    for m, k, dtype in sorted(shapes, key=str):
+        x, a, b, w = operands(gen, m, k, dtype)
+        diff, rel = check_call(fd, x, a, b, w, TOLERANCE[str(dtype)[6:]],
+                               f"2D M={m} K={k} {dtype}")
+        worst[dtype] = max(worst.get(dtype, 0.0), diff)
+    print(f"planar kernel checks: {len(shapes)} (M, K, dtype) shapes of the "
+          f"2D forwards and supersteps against the plain version, max abs "
+          f"err " + ", ".join(f"{str(d)[6:]} {e:.2e}"
+                              for d, e in worst.items()))
+
+    # 2D Grad-CAM of the flagship on one patient: the card against the CPU
+    cfg = Config()
+    cfg.image_model.spatial_dims = 2
+    flags = dict(images=True, preop=True, postop=False, blend=True)
+    base = build_model(cfg, **flags)
+    load_jax_npz(base, random_flat_weights(base, seed, to_jax_flat))
+    inputs = {"image": image_batch(1, PLANAR_SIDE),
+              "clinical": torch.from_numpy(rng.normal(size=(1, 11)).astype(
+                  np.float32))}
+    cpu_maps = attention_maps(base.eval(), inputs, 2, blend=True)
+    model = copy.deepcopy(base).to("cuda").eval()
+    maps = attention_maps(model, {k: v.cuda() for k, v in inputs.items()},
+                          2, blend=True)
+    map_err = check(maps, cpu_maps, "Grad-CAM, card vs CPU",
+                    PLANAR_MAP_TOLERANCE)
+    if maps.shape != (2, PLANAR_SIDE, PLANAR_SIDE) or maps.min() < 0 \
+            or maps.max() > 1:
+        raise AssertionError(f"planar Grad-CAM maps {tuple(maps.shape)} in "
+                             f"[{maps.min():.3g}, {maps.max():.3g}]")
+    print(f"  2D Grad-CAM (flagship blend model, one {PLANAR_SIDE}^2 "
+          f"patient): maps {tuple(maps.shape)} in [0, 1], card vs CPU max "
+          f"|Δ| {map_err:.2e} (limit {PLANAR_MAP_TOLERANCE:g})")
+    torch.backends.cudnn.allow_tf32 = tf32
+    results["large_m_ms"] = large_ms
+    results["shapes"] = len(shapes)
+    results["kernel_58"] = timed
+    return results
+
+
+MESH_STEPS = 3  # the warm-up, the capture (and its replay), a replay
+MESH_RANK_STEPS = 1  # eager supersteps of the two ranks sharing the card
+MESH_CONTROL_FACTOR = 4.0
+# relative L2 of the two ranks' first losses and predictions from one
+# process's: before any update, only the reduction order differs
+MESH_FIRST_LIMIT = 1e-5
+MESH_CLI_PATIENTS = 16  # training patients of the two-rank CLI run
+MESH_TIMEOUT = 600
+
+
+def mesh_setup(seed: int, rows: int):
+    """The flagship blend model's weights, a resident split of 64 volumes
+    and ``rows`` supersteps' indices, the same in every process."""
+    from mmnn_sts_torch.config import Config
+    from mmnn_sts_torch.convert import to_jax_flat
+    from mmnn_sts_torch.data.loader import DeviceDataset
+    from mmnn_sts_torch.infer.export import model_spec
+    from mmnn_sts_torch.models import build_model
+
+    flags = dict(images=True, preop=True, postop=False, blend=True)
+    cfg = Config()
+    cfg.image_model.spatial_size = [CLI_SIDE] * 3
+    spec = model_spec(cfg, **flags)
+    weights = random_flat_weights(build_model(cfg, **flags), seed,
+                                  to_jax_flat)
+    rng = np.random.default_rng(seed + 20)
+    n = TRAIN_MICRO * TRAIN_BATCH
+    inputs, events, durations = synthetic_split(rng, (n,), spec, "cuda")
+    ds = DeviceDataset(uids=np.arange(n), inputs=inputs, events=events,
+                       durations=durations)
+    idx = np.stack([rng.permutation(n).reshape(TRAIN_MICRO, TRAIN_BATCH)
+                    for _ in range(rows)])
+    return cfg, flags, weights, ds, idx
+
+
+def mesh_state(cfg, flags, weights, seed, ranks=None):
+    from mmnn_sts_torch.convert import load_jax_npz
+    from mmnn_sts_torch.models import build_model
+    from mmnn_sts_torch.train.schedule import make_optimizer
+    from mmnn_sts_torch.train.state import create_train_state
+
+    model = build_model(cfg, **flags)
+    load_jax_npz(model, weights)
+    model.to("cuda")
+    state = create_train_state(model, *make_optimizer(
+        model.parameters(), TRAIN_LR, 4, 1), seed=seed, mesh=ranks)
+    state.ensure_rates(MESH_STEPS)
+    return state
+
+
+def mesh_supersteps(state, ds, idx, steps: int, graphed: bool):
+    """``steps`` flagship supersteps (augmented), eager or through
+    ``survival_train_epoch``; returns each superstep's ``state_tensors``
+    (copies: its loss and predictions, then the state it left) and its
+    host seconds (``"seconds"``, synchronised)."""
+    from mmnn_sts_torch.data.loader import gather_superbatch
+    from mmnn_sts_torch.train.steps import (
+        survival_train_epoch, survival_train_superstep)
+
+    trace = []
+    for s in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if graphed:
+            out = survival_train_epoch(state, ds, idx[s:s + 1], blend=True)
+            loss, preds = out["loss"][:1], out["preds"][:1]
+        else:
+            batch = gather_superbatch(ds, idx[s])
+            aux = survival_train_superstep(
+                state, batch["inputs"], batch["events"], batch["durations"],
+                blend=True)
+            loss, preds = aux["loss"][None], aux["preds"][None]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        trace.append({k: v.clone() for k, v in
+                      state_tensors(state, loss, preds).items()})
+        trace[-1]["seconds"] = seconds
+    return trace
+
+
+def mesh_rank(workdir: str, seed: int) -> int:
+    """One of mesh_phase's two ranks sharing the card over gloo (started by
+    ``--mesh-rank``): the flagship's eager supersteps on this rank's rows;
+    rank 0 saves the state's tensors."""
+    sys.path.insert(0, str(REPO))
+    from mmnn_sts_torch.ops import fused_dense as fd
+    from mmnn_sts_torch.parallel import mesh
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    if not mesh.maybe_initialize_distributed("cuda"):
+        raise SystemExit("mesh rank: no torch.distributed environment")
+    ranks = mesh.make_mesh([-1], ("data",))
+    cfg, flags, weights, ds, idx = mesh_setup(seed, MESH_RANK_STEPS)
+    state = mesh_state(cfg, flags, weights, seed, ranks)
+    # gloo takes CUDA tensors through the host: check it moves them
+    probe = torch.full((4,), float(ranks.rank + 1), device="cuda")
+    parts = [torch.empty_like(probe) for _ in range(ranks.shape[0])]
+    torch.distributed.all_gather(parts, probe)
+    torch.distributed.all_reduce(probe)
+    torch.distributed.broadcast(probe, 0)
+    if probe.device.type != "cuda" or probe[0].item() != 3.0 \
+            or [p[0].item() for p in parts] != [1.0, 2.0]:
+        raise AssertionError(f"gloo on the card: {probe}, {parts}")
+    fd.fused_bn_relu_matmul.launches = 0
+    mesh.reset_counts()
+    t0 = time.perf_counter()
+    trace = mesh_supersteps(state, ds, idx, MESH_RANK_STEPS, False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = mesh_host(trace)
+    out["launches"] = np.asarray(fd.fused_bn_relu_matmul.launches)
+    out["collectives"] = np.asarray([mesh.counts["all_reduce"],
+                                     mesh.counts["all_gather"]])
+    out["seconds"] = np.asarray(wall)
+    np.savez(Path(workdir) / f"mesh_rank{ranks.rank}.npz", **out)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def mesh_host(trace: list) -> dict:
+    """A run's last state and every superstep's loss and predictions, on
+    the host as float32 arrays (the generator's state left out)."""
+    out = {k: v.detach().float().cpu().numpy()
+           for k, v in trace[-1].items() if k not in ("generator", "seconds")}
+    out["losses"] = np.concatenate([t["losses"].float().cpu().numpy()
+                                    for t in trace])
+    out["preds"] = np.concatenate([t["preds"].float().cpu().numpy()
+                                   for t in trace])
+    return out
+
+
+def fmt_seconds(values) -> str:
+    return " / ".join(f"{v:.3f}" for v in values)
+
+
+def rel_l2(got: dict, want: dict, keys) -> float:
+    """Relative L2 distance of the concatenated tensors ``keys``."""
+    g = np.concatenate([np.asarray(got[k], np.float64).ravel() for k in keys])
+    w = np.concatenate([np.asarray(want[k], np.float64).ravel()
+                        for k in keys])
+    return float(np.linalg.norm(g - w) / max(np.linalg.norm(w), 1e-30))
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def start_mesh_ranks(seed: int, rank_dir: Path) -> list:
+    """(b)'s two ranks sharing the card over gloo: this script with
+    ``--mesh-rank``, each writing its log beside its results."""
+    rank_dir.mkdir()
+    port = free_port()
+    procs = []
+    for r in range(2):
+        with open(rank_dir / f"rank{r}.log", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(REPO / "chip_smoke.py"), "--seed",
+                 str(seed), "--mesh-rank", str(rank_dir)],
+                env={**os.environ, "RANK": str(r), "WORLD_SIZE": "2",
+                     "LOCAL_RANK": str(r), "LOCAL_WORLD_SIZE": "2",
+                     "MASTER_ADDR": "localhost", "MASTER_PORT": str(port),
+                     "OMP_NUM_THREADS": "1"},
+                stdout=log, stderr=subprocess.STDOUT))
+    return procs
+
+
+def start_mesh_cli(workdir: Path):
+    """(c): the survival CLI under torch.distributed.run, two ranks over
+    gloo on the card, 1 epoch on the CLI phase's cohort with its split's
+    first MESH_CLI_PATIENTS training patients. Returns the process and
+    its directory."""
+    run_dir = workdir / "mesh_cli"
+    run_dir.mkdir()
+    splits = {}
+    for split in ("train", "val", "test"):
+        uids = (workdir / "run" / f"{split}_uids.txt").read_text().split()
+        if split == "train":
+            uids = uids[:MESH_CLI_PATIENTS]
+        path = run_dir / f"{split}_uids.txt"
+        path.write_text("\n".join(uids) + "\n")
+        splits[f"{split}_uid_location"] = str(path)
+    base = json.loads((workdir / "config.json").read_text())
+    base["Preprocessing"] = splits
+    config = run_dir / "config.json"
+    config.write_text(json.dumps(base))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+           "--nproc_per_node", "2", "--master_addr", "localhost",
+           "--master_port", str(free_port()), "-m", "mmnn_sts_torch",
+           "--images", "--preop", "--survival", "--blend", "--epochs", "1",
+           "--config", str(config), "--output_path", "out"]
+    with open(run_dir / "stdout.log", "w") as out, \
+            open(run_dir / "stderr.log", "w") as err:
+        proc = subprocess.Popen(cmd, cwd=run_dir, stdout=out, stderr=err,
+                                env={**os.environ, "PYTHONPATH": str(REPO)})
+    return proc, run_dir
+
+
+def wait_all(procs: list, timeout: float) -> list:
+    """Each process's return code, waiting at most ``timeout`` seconds in
+    all; a process still running then is killed."""
+    end = time.perf_counter() + timeout
+    try:
+        return [p.wait(timeout=max(end - time.perf_counter(), 0.1))
+                for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def mesh_phase(fd, seed: int, workdir: Path) -> dict:
+    """The data axis of TPU.mesh_shape on the card (see the module
+    docstring, phase 20): (b)'s ranks and (c)'s run start first and run
+    beside (a). Returns the launches and collectives."""
+    cudnn = torch.backends.cudnn
+    tf32, deterministic = cudnn.allow_tf32, cudnn.deterministic
+    cudnn.allow_tf32, cudnn.deterministic = False, True
+    cfg, flags, weights, ds, idx = mesh_setup(seed, MESH_STEPS)
+    print(f"mesh: the flagship superstep {TRAIN_MICRO} x {TRAIN_BATCH} at "
+          f"{CLI_SIDE}^3 (augmented, dropout {cfg.image_model.dropout_prob}),"
+          f" cudnn.allow_tf32={cudnn.allow_tf32} cudnn.deterministic="
+          f"{cudnn.deterministic}; (b) and (c) in their own processes beside "
+          f"(a)")
+    t0 = time.perf_counter()
+    rank_dir = workdir / "mesh_ranks"
+    procs = start_mesh_ranks(seed, rank_dir)
+    try:
+        cli_proc, run_dir = start_mesh_cli(workdir)
+        procs.append(cli_proc)
+        results, want = mesh_one_rank(fd, cfg, flags, weights, ds, idx, seed,
+                                      workdir)
+        rcs = wait_all(procs, MESH_TIMEOUT)
+    finally:
+        wait_all(procs, 0.0)
+    wall = time.perf_counter() - t0
+    for r, rc in enumerate(rcs[:2]):
+        if rc != 0:
+            raise AssertionError(
+                f"mesh (b) rank {r} returned {rc}:\n"
+                f"{(rank_dir / f'rank{r}.log').read_text()[-3000:]}")
+    results.update(mesh_two_ranks(cfg, flags, weights, ds, idx, seed, want,
+                                  rank_dir, wall))
+    mesh_cli_check(rcs[2], run_dir, flags, wall)
+    cudnn.allow_tf32, cudnn.deterministic = tf32, deterministic
+    return results
+
+
+def mesh_one_rank(fd, cfg, flags, weights, ds, idx, seed, workdir):
+    """(a): one NCCL rank in this process, eager and graphed, against the
+    run without a process group. Returns its results and that run."""
+    from mmnn_sts_torch.parallel import mesh
+    from mmnn_sts_torch.train import graphs
+
+    alone = mesh_state(cfg, flags, weights, seed)
+    want = mesh_supersteps(alone, ds, idx, MESH_STEPS, False)
+    del alone
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "LOCAL_WORLD_SIZE": "1"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        if not mesh.maybe_initialize_distributed(
+                "cuda", init_method=f"file://{workdir}/nccl_store"):
+            raise AssertionError("no process group")
+        ranks = mesh.make_mesh([-1], ("data",))
+        if ranks.backend != "nccl":
+            raise AssertionError(f"one rank on the card took {ranks.backend}")
+        eager = mesh_state(cfg, flags, weights, seed, ranks)
+        mesh.reset_counts()
+        fd.fused_bn_relu_matmul.launches = 0
+        eager_got = mesh_supersteps(eager, ds, idx, MESH_STEPS, False)
+        per_step = {k: v // MESH_STEPS for k, v in mesh.counts.items()}
+        eager_launches = fd.fused_bn_relu_matmul.launches // MESH_STEPS
+        del eager
+        graphed = mesh_state(cfg, flags, weights, seed, ranks)
+        fd.fused_bn_relu_matmul.launches = 0
+        t0 = time.perf_counter()
+        graphed_got = mesh_supersteps(graphed, ds, idx, MESH_STEPS, True)
+        torch.cuda.synchronize()
+        graphed_s = time.perf_counter() - t0
+        (steps,) = (v for v in graphed.graphs.values()
+                    if isinstance(v, graphs.EpochSteps))
+        step = steps.graphs["step"]
+        del graphed
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    results = {"nccl_collectives_per_superstep": per_step,
+               "nccl_launches_per_capture": step.launches_per_capture,
+               "nccl_eager_launches_per_superstep": eager_launches}
+    seconds = {what: [t.pop("seconds") for t in trace] for what, trace in
+               (("alone", want), ("eager", eager_got),
+                ("graphed", graphed_got))}
+    total = sum(len(t) for t in want)
+    for what, got in (("eager", eager_got), ("graphed", graphed_got)):
+        equal, worst = 0, {}
+        for g, w in zip(got, want):
+            same, diffs = group_diffs(g, w)
+            equal += same
+            worst = {k: max(worst.get(k, 0.0), d) for k, d in diffs.items()}
+        if equal != total:
+            raise AssertionError(
+                f"mesh (a) one NCCL rank, {what}: {equal} of {total} "
+                f"tensors bit-equal to the run without a process group; "
+                f"largest differences {worst}")
+    del eager_got, graphed_got
+    if step.launches_per_capture != TRAIN_MICRO * 58 or step.replays < 1 \
+            or eager_launches != TRAIN_MICRO * 58:
+        raise AssertionError(f"mesh (a): {step.launches_per_capture} "
+                             f"launches per capture, {step.replays} replays,"
+                             f" {eager_launches} eager")
+    print(f"mesh (a) one rank over NCCL (FileStore), TPU.mesh_shape [-1]: "
+          f"eager and graphed (survival_train_epoch, {MESH_STEPS} "
+          f"supersteps: warm-up, capture + replay, replay) each bit-equal "
+          f"to the run without a process group in all {total} tensors "
+          f"({MESH_STEPS} supersteps' states); "
+          f"collectives a superstep {per_step} (one all-reduce a train-mode "
+          f"BatchNorm forward and backward, one gather a microbatch, one "
+          f"gradient sum); {step.launches_per_capture} launches per capture, "
+          f"{step.replays} replays; graphed {graphed_s:.1f} s")
+    print(f"mesh (a) superstep seconds (host clock, synchronised; TF32 off, "
+          f"cuDNN deterministic; (b) and (c) running beside): no process "
+          f"group eager {fmt_seconds(seconds['alone'])}; one NCCL rank eager "
+          f"{fmt_seconds(seconds['eager'])}; one NCCL rank graphed (warm-up, "
+          f"capture + replay, replay) {fmt_seconds(seconds['graphed'])}")
+    results["superstep_seconds"] = seconds
+    return results, want
+
+
+def mesh_two_ranks(cfg, flags, weights, ds, idx, seed, want, rank_dir,
+                   wall) -> dict:
+    """(b): the two gloo ranks' results against one process: (a)'s run
+    without a process group, whose first supersteps are the ranks' (the
+    same data and indices); the control, the same on volumes scaled by
+    1 + 2^-22. The first superstep's losses and predictions come before
+    any update, so only the reduction order differs: they are held at
+    MESH_FIRST_LIMIT; the update after it at 4 x its control."""
+    ranks_out = []
+    for r in range(2):
+        with np.load(rank_dir / f"mesh_rank{r}.npz") as data:
+            ranks_out.append({k: data[k] for k in data.files})
+    single = mesh_host(want[:MESH_RANK_STEPS])
+    scaled = copy.copy(ds)
+    scaled.inputs = {**ds.inputs, "image": ds.inputs["image"]
+                     * (1 + 2**-22)}
+    control = mesh_host(mesh_supersteps(mesh_state(cfg, flags, weights, seed),
+                                        scaled, idx, MESH_RANK_STEPS, False))
+    params = [k for k in single if k.startswith("param ")]
+    before = {k: v.detach().float().cpu().numpy() for k, v in state_tensors(
+        mesh_state(cfg, flags, weights, seed), torch.zeros(1),
+        torch.zeros(1)).items() if k.startswith("param ")}
+
+    def update_dist(got):
+        upd = {k: got[k] - before[k] for k in params}
+        ref = {k: single[k] - before[k] for k in params}
+        return rel_l2(upd, ref, params)
+
+    def first(got):  # the first superstep's losses and predictions
+        return {"losses": got["losses"][:1],
+                "preds": got["preds"][:len(got["preds"]) // MESH_RANK_STEPS]}
+
+    dist_two, dist_ctl = update_dist(ranks_out[0]), update_dist(control)
+    first_two = rel_l2(first(ranks_out[0]), first(single),
+                       ["losses", "preds"])
+    first_ctl = rel_l2(first(control), first(single), ["losses", "preds"])
+    same = all(np.array_equal(ranks_out[0][k], ranks_out[1][k])
+               for k in single)
+    per_rank = int(ranks_out[0]["launches"]) // MESH_RANK_STEPS
+    if not (same and first_two <= MESH_FIRST_LIMIT
+            and dist_two <= max(1e-5, MESH_CONTROL_FACTOR * dist_ctl)
+            and per_rank == TRAIN_MICRO * 58):
+        raise AssertionError(
+            f"mesh (b): ranks agree {same}; first losses and predictions "
+            f"rel L2 {first_two:.3e} (limit {MESH_FIRST_LIMIT:g}, one-ulp "
+            f"control {first_ctl:.3e}); update rel L2 {dist_two:.3e} (control "
+            f"{dist_ctl:.3e}); {per_rank} launches a rank a superstep")
+    print(f"mesh (b) two ranks sharing the card over gloo (CUDA tensors "
+          f"staged through the host: all_gather, all_reduce and broadcast "
+          f"checked), {MESH_RANK_STEPS} eager superstep(s) at microbatch "
+          f"{TRAIN_BATCH} ({TRAIN_BATCH // 2} rows a rank): {per_rank} "
+          f"launches a rank a superstep, collectives a rank "
+          f"{ranks_out[0]['collectives'].tolist()} (all-reduce, gather); the "
+          f"ranks bit-equal to each other; against one process on the card: "
+          f"the first superstep's losses and predictions rel L2 "
+          f"{first_two:.3e} (limit {MESH_FIRST_LIMIT:g}; the one-ulp "
+          f"control's {first_ctl:.3e}), the update rel L2 {dist_two:.3e} beside the "
+          f"one-ulp control's {dist_ctl:.3e} (limit {MESH_CONTROL_FACTOR:g} "
+          f"x); the ranks' supersteps {float(ranks_out[0]['seconds']):.1f} s "
+          f"(beside (a) and (c)); the mesh phase's processes {wall:.1f} s")
+    return {"gloo_launches_per_rank_superstep": per_rank,
+            "gloo_rank_seconds": float(ranks_out[0]["seconds"])}
+
+
+def mesh_cli_check(rc: int, run_dir: Path, flags: dict, wall: float):
+    """(c)'s checks: rc 0, both ranks over gloo, one metrics row with
+    finite losses and C-indices in [0, 1], the .npz loads strictly."""
+    from mmnn_sts_torch.config import parse_config
+    from mmnn_sts_torch.convert import load_jax_npz
+    from mmnn_sts_torch.models import build_model
+
+    out = run_dir / "out"
+    stdout = (run_dir / "stdout.log").read_text()
+    rows = ([json.loads(x) for x in (out / "metrics.jsonl").read_text()
+             .splitlines()] if (out / "metrics.jsonl").exists() else [])
+    if rc != 0 or len(rows) != 1 or not (
+            np.isfinite([rows[0]["train_loss"], rows[0]["val_loss"]]).all()
+            and 0.0 <= rows[0]["val_c"] <= 1.0
+            and 0.0 <= rows[0]["train_c"] <= 1.0):
+        raise AssertionError(
+            f"mesh (c) torch.distributed.run: rc {rc}, rows {rows}\n"
+            f"{stdout[-2000:]}\n"
+            f"{(run_dir / 'stderr.log').read_text()[-3000:]}")
+    load_jax_npz(build_model(parse_config(str(run_dir / "config.json")),
+                             **flags), str(out / "best_surv_model.npz"))
+    logged = [line for line in stdout.splitlines()
+              if line.startswith("distributed:")]
+    if len(logged) != 2 or not all("backend gloo" in x for x in logged):
+        raise AssertionError(f"mesh (c): {logged}")
+    counts = [line for line in stdout.splitlines()
+              if line.startswith("Training count")]
+    print(f"mesh (c) python -m torch.distributed.run --nproc_per_node 2 -m "
+          f"mmnn_sts_torch --images --preop --survival --blend, 1 epoch on "
+          f"the CLI phase's cohort, {MESH_CLI_PATIENTS} of its training "
+          f"patients: rc 0 (within the mesh phase's {wall:.1f} s); "
+          f"{counts[:1]}; {logged}; one metrics row (rank 0 alone writes: "
+          f"two writers would append two), train loss "
+          f"{rows[0]['train_loss']:.4f}, val C {rows[0]['val_c']:.3f}; the "
+          f".npz loads strictly; written: "
+          f"{sorted(p.name for p in out.iterdir())}")
+
+
+# every phase in the order it runs, with the phases whose results or
+# files it reads
+PHASES = {
+    "kernel_phase": (),
+    "sweep_phase": (),
+    "wide_kernel_phase": (),
+    "serve_phase": (),
+    "backward_phase": (),
+    "train_phase": (),
+    "bf16_train_phase": (),
+    "families_phase": (),
+    "remat_phase": (),
+    "fused_epoch_phase": (),
+    "planar_phase": (),
+    "cli_phase": (),
+    "infer_phase": ("cli_phase",),
+    "fused_cli_phase": ("cli_phase", "infer_phase"),
+    "bf16_cli_phase": ("cli_phase",),
+    "wide_cli_phase": ("cli_phase",),
+    "dicom_cli_phase": ("cli_phase",),
+    "s3_cli_phase": ("cli_phase", "dicom_cli_phase"),
+    "mesh_phase": ("cli_phase",),
+}
+
+
+def selected_phases(arg: str) -> set:
+    """The phases ``--phases`` names, with every phase they need; all of
+    them when it names none. An unknown name raises."""
+    names = [n.strip() for n in arg.split(",") if n.strip()]
+    unknown = [n for n in names if n not in PHASES]
+    if unknown:
+        raise SystemExit(f"chip_smoke: unknown phases {unknown}; "
+                         f"known: {', '.join(PHASES)}")
+    if not names:
+        return set(PHASES)
+    run, todo = set(), list(names)
+    while todo:
+        name = todo.pop()
+        if name not in run:
+            run.add(name)
+            todo.extend(PHASES[name])
+    return run
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--phases", default="",
+                    help="comma-separated phases to run (with the phases "
+                         "they need); default: every phase")
+    ap.add_argument("--mesh-rank", default="", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.mesh_rank:  # one of mesh_phase's ranks, started by it
+        return mesh_rank(args.mesh_rank, args.seed)
+    run = selected_phases(args.phases)
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -3584,44 +4402,83 @@ def main(argv=None) -> int:
         print(f"{name}: {now - last[0]:.1f} s")
         last[0] = now
 
-    rows = kernel_phase(fd, args.seed, REPO / "chiprun_out")
-    lap("kernel_phase")
-    sweep_phase(fd, args.seed, REPO / "chiprun_out")
-    lap("sweep_phase")
-    wide = wide_kernel_phase(fd, args.seed, REPO / "chiprun_out")
-    lap("wide_kernel_phase")
+    res = {}
+    out_dir = REPO / "chiprun_out"
+    alone = {
+        "kernel_phase": lambda: kernel_phase(fd, args.seed, out_dir),
+        "sweep_phase": lambda: sweep_phase(fd, args.seed, out_dir),
+        "wide_kernel_phase": lambda: wide_kernel_phase(fd, args.seed,
+                                                       out_dir),
+        "backward_phase": lambda: backward_phase(fd, args.seed, out_dir),
+        "train_phase": lambda: train_phase(fd, args.seed),
+        "bf16_train_phase": lambda: bf16_train_phase(fd, args.seed),
+        "families_phase": lambda: families_phase(fd, args.seed),
+        "remat_phase": lambda: remat_phase(fd, args.seed),
+        "fused_epoch_phase": lambda: fused_epoch_phase(fd, args.seed),
+        "planar_phase": lambda: planar_phase(fd, args.seed),
+    }
+    for phase in PHASES:
+        if phase == "serve_phase" and phase in run:
+            with tempfile.TemporaryDirectory() as tmp:
+                res[phase] = serve_phase(fd, args.seed, Path(tmp))
+            lap(phase)
+        elif phase in alone and phase in run:
+            res[phase] = alone[phase]()
+            lap(phase)
     with tempfile.TemporaryDirectory() as tmp:
-        launches = serve_phase(fd, args.seed, Path(tmp))
-    lap("serve_phase")
-    backward = backward_phase(fd, args.seed, REPO / "chiprun_out")
-    lap("backward_phase")
-    train_launches = train_phase(fd, args.seed)
-    lap("train_phase")
-    bf16_train = bf16_train_phase(fd, args.seed)
-    lap("bf16_train_phase")
-    families = families_phase(fd, args.seed)
-    lap("families_phase")
-    remat = remat_phase(fd, args.seed)
-    lap("remat_phase")
-    fused = fused_epoch_phase(fd, args.seed)
-    lap("fused_epoch_phase")
-    with tempfile.TemporaryDirectory() as tmp:
-        cli = cli_phase(fd, args.seed, Path(tmp))
-        lap("cli_phase")
-        infer = infer_phase(fd, args.seed, Path(tmp))
-        lap("infer_phase")
-        fused_cli = fused_cli_phase(fd, args.seed, Path(tmp),
-                                    cli["per_epoch"])
-        lap("fused_cli_phase")
-        bf16_cli = bf16_cli_phase(fd, args.seed, Path(tmp))
-        lap("bf16_cli_phase")
-        wide_cli = wide_cli_phase(fd, args.seed, Path(tmp))
-        lap("wide_cli_phase")
-        dicom_cli = dicom_cli_phase(fd, args.seed, Path(tmp))
-        lap("dicom_cli_phase")
-        s3_cli_phase(fd, args.seed, Path(tmp), dicom_cli["root"])
-        lap("s3_cli_phase")
+        work = Path(tmp)
+        in_dir = {
+            "cli_phase": lambda: cli_phase(fd, args.seed, work),
+            "infer_phase": lambda: infer_phase(fd, args.seed, work),
+            "fused_cli_phase": lambda: fused_cli_phase(
+                fd, args.seed, work, res["cli_phase"]["per_epoch"]),
+            "bf16_cli_phase": lambda: bf16_cli_phase(fd, args.seed, work),
+            "wide_cli_phase": lambda: wide_cli_phase(fd, args.seed, work),
+            "dicom_cli_phase": lambda: dicom_cli_phase(fd, args.seed, work),
+            "s3_cli_phase": lambda: s3_cli_phase(
+                fd, args.seed, work, res["dicom_cli_phase"]["root"]),
+            "mesh_phase": lambda: mesh_phase(fd, args.seed, work),
+        }
+        for phase in PHASES:
+            if phase in in_dir and phase in run:
+                res[phase] = in_dir[phase]()
+                lap(phase)
+    print(json.dumps({"kernels": kernels_line(res)}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return 0
 
+
+def kernels_line(res: dict) -> list:
+    """The two kernels' entries from the phases that ran (None where the
+    phase that measures a number did not run)."""
+    def get(phase, *keys):
+        value = res.get(phase)
+        for key in keys:
+            if value is None:
+                return None
+            value = value[key]
+        return value
+
+    def total(values):
+        """The sum of ``values``; None where there are none (its phase
+        did not run)."""
+        values = list(values)
+        return sum(values) if values else None
+
+    def mean(values):
+        values = list(values)
+        return sum(values) / len(values) if values else None
+
+    def bound_by(path):
+        if not path:
+            return None
+        return max(("bytes", "operations"), key=lambda by: sum(
+            r["bound_ms"] for r in path if r["bound_by"] == by))
+
+    rows = res.get("kernel_phase") or []
+    backward = res.get("backward_phase") or []
     main_path = [r for r in rows if r["batch"] == 8 and r["dtype"] == "float32"]
     bf16_path = [r for r in rows
                  if r["batch"] == 8 and r["dtype"] == "bfloat16"]
@@ -3630,68 +4487,99 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "mmnn_sts_torch/kernels/csrc/fused_bn_relu_matmul.cu",
         "replaces": "mmnn_sts_tpu/ops/pallas/fused_dense.py:58",
-        "launches": launches,
+        "launches": res.get("serve_phase"),
         # one served batch-8 forward: the sum over its 58 calls
-        "max_abs_err": max(r["max_abs_err"] for r in rows
-                           if r["dtype"] == "float32"),
-        "ms": sum(r["ms"] for r in main_path),
-        "plain_ms": sum(r["plain_ms"] for r in main_path),
-        "bound_ms": sum(r["bound_ms"] for r in main_path),
-        "bound_by": max(("bytes", "operations"), key=lambda by: sum(
-            r["bound_ms"] for r in main_path if r["bound_by"] == by)),
+        "max_abs_err": max((r["max_abs_err"] for r in rows
+                            if r["dtype"] == "float32"), default=None),
+        "ms": total(r["ms"] for r in main_path),
+        "plain_ms": total(r["plain_ms"] for r in main_path),
+        "bound_ms": total(r["bound_ms"] for r in main_path),
+        "bound_by": bound_by(main_path),
         "library_ms": None,  # no single PyTorch call computes this function
         # torch.matmul(h, w) on a precomputed h: the product alone
-        "gemm_ms": sum(r["gemm_ms"] for r in main_path),
-        "host_us_per_call": sum(r["host_us"] for r in main_path)
-        / len(main_path),
+        "gemm_ms": total(r["gemm_ms"] for r in main_path),
+        "host_us_per_call": mean(r["host_us"] for r in main_path),
         # the flagship training superstep: 58 calls per microbatch x 8
-        "launches_per_superstep": train_launches,
+        "launches_per_superstep": res.get("train_phase"),
         # the CLI run: 3 epochs of 2 supersteps (464 each) and one
         # validation forward (58)
-        "launches_cli_run": cli["launches"],
-        "launches_per_cli_epoch": cli["per_epoch"],
+        "launches_cli_run": get("cli_phase", "launches"),
+        "launches_per_cli_epoch": get("cli_phase", "per_epoch"),
         # --inference of the 15 test patients: 58 x (1 eval step + 2 x 15:
         # each patient's Grad-CAM forward and its own forward); the same
         # for classification with one forward a patient; a classification
         # epoch: (9 steps + 1 validation forward) x 58
-        "launches_inference_survival": infer["survival"],
-        "launches_inference_classification": infer["classification"],
-        "launches_per_classification_epoch": infer["per_classification_epoch"],
+        "launches_inference_survival": get("infer_phase", "survival"),
+        "launches_inference_classification": get("infer_phase",
+                                                     "classification"),
+        "launches_per_classification_epoch": get(
+            "infer_phase", "per_classification_epoch"),
         # its backward (the JAX package's _bwd in plain PyTorch), the sum
         # over the 58 shapes of one microbatch of 8
-        "backward_ms": sum(r["ms"] for r in backward),
-        "backward_plain_ms": sum(r["plain_ms"] for r in backward),
-        "backward_bound_ms": sum(r["bound_ms"] for r in backward),
-        "backward_max_rel_err": max(r["max_rel_err"] for r in backward),
+        "backward_ms": total(r["ms"] for r in backward),
+        "backward_plain_ms": total(r["plain_ms"] for r in backward),
+        "backward_bound_ms": total(r["bound_ms"] for r in backward),
+        "backward_max_rel_err": max((r["max_rel_err"] for r in backward),
+                                    default=None),
         # the kernel's launches in one eval forward of each image model
         # (the families phase; 0 where the model has no bottleneck)
-        "launches_per_forward_by_model": {
-            "densenet121": train_launches // TRAIN_MICRO,
-            **{k: v["per_forward"] for k, v in families.items()}},
+        "launches_per_forward_by_model": None if "families_phase" not in res
+        else {"densenet121": res["train_phase"] // TRAIN_MICRO
+              if "train_phase" in res else None,
+              **{k: v["per_forward"]
+                 for k, v in res["families_phase"].items()}},
         # TPU.remat: the flagship superstep, each wrapped bottleneck's
         # forward run again in the backward (8 x (58 + 57))
-        "launches_remat_superstep": remat["launches"],
+        "launches_remat_superstep": get("remat_phase", "launches"),
         # --lr_finder on the flagship: 100 one-microbatch supersteps x 58
-        "launches_lr_finder": wide_cli["lr_finder"],
-        # the image-only densenet201 CLI run: 2 epochs of 2 supersteps
+        "launches_lr_finder": get("wide_cli_phase", "lr_finder"),
+        # the image-only densenet201 CLI run: 1 epoch of 2 supersteps
         # (8 x 98) and one validation forward (98) each
-        "launches_densenet201_cli_run": wide_cli["launches"],
+        "launches_densenet201_cli_run": get("wide_cli_phase", "launches"),
         # densenet264's 130 calls at batch 8: the sums as for DenseNet121's
-        "densenet264_ms": wide["float32"]["ms"],
-        "densenet264_plain_ms": wide["float32"]["plain_ms"],
-        "densenet264_bound_ms": wide["float32"]["bound_ms"],
-        "densenet264_gemm_ms": wide["float32"]["gemm_ms"],
+        "densenet264_ms": get("wide_kernel_phase", "float32", "ms"),
+        "densenet264_plain_ms": get("wide_kernel_phase", "float32",
+                                    "plain_ms"),
+        "densenet264_bound_ms": get("wide_kernel_phase", "float32",
+                                    "bound_ms"),
+        "densenet264_gemm_ms": get("wide_kernel_phase", "float32",
+                                   "gemm_ms"),
         # TPU.fused_epoch: the launches the wrapper counts while a CUDA
         # graph of the flagship superstep is captured (its replays launch
         # the same kernels without the wrapper), with augmentation and
         # with remat, and the replays timed; the fused CLI run's step,
         # tail and validation graphs
-        "launches_per_capture_superstep":
-            fused["fp32 + aug"]["launches_per_capture"],
-        "launches_per_capture_remat_superstep":
-            fused["fp32 remat"]["launches_per_capture"],
-        "replays_timed_superstep": fused["fp32 + aug"]["replays"],
-        "launches_per_capture_cli": fused_cli["per_capture"],
+        "launches_per_capture_superstep": get(
+            "fused_epoch_phase", "fp32 + aug", "launches_per_capture"),
+        "launches_per_capture_remat_superstep": get(
+            "fused_epoch_phase", "fp32 remat", "launches_per_capture"),
+        "replays_timed_superstep": get("fused_epoch_phase", "fp32 + aug",
+                                       "replays"),
+        "launches_per_capture_cli": get("fused_cli_phase", "per_capture"),
+        # spatial_dims 2: the kernel's launches in one eval forward of each
+        # 2D family at (8, 64, 64, 2) (0 where there is no bottleneck)
+        "launches_planar_forward_by_model": None
+        if "planar_phase" not in res else {
+            k: v["per_forward"] for k, v in res["planar_phase"].items()
+            if isinstance(v, dict) and "per_forward" in v},
+        # the data axis: the flagship superstep captured over one NCCL rank
+        # (its collectives a superstep), and one of two ranks sharing the
+        # card over gloo (4 rows a microbatch)
+        "launches_per_capture_nccl_rank": get("mesh_phase",
+                                              "nccl_launches_per_capture"),
+        "collectives_per_superstep_nccl_rank": get(
+            "mesh_phase", "nccl_collectives_per_superstep"),
+        "launches_per_superstep_gloo_rank": get(
+            "mesh_phase", "gloo_launches_per_rank_superstep"),
+        # the 58 calls at the 2D flagship's (8, 64, 64) and at one of two
+        # ranks' 4 rows of a 3D microbatch (batch 4 of kernel_phase)
+        "planar_ms": get("planar_phase", "kernel_58", "float32", "ms"),
+        "planar_plain_ms": get("planar_phase", "kernel_58", "float32",
+                               "plain_ms"),
+        "planar_bound_ms": get("planar_phase", "kernel_58", "float32",
+                               "bound_ms"),
+        "per_rank_of_two_ms": total(r["ms"] for r in rows if r["batch"] == 4
+                                  and r["dtype"] == "float32"),
     }
     # TPU.compute_dtype bfloat16: the tensor-core kernel. Its 58 calls of one
     # batch-8 forward against the plain op, cuBLAS's product alone and the
@@ -3705,39 +4593,45 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "mmnn_sts_torch/kernels/csrc/fused_bn_relu_matmul_bf16.cu",
         "replaces": "mmnn_sts_tpu/ops/pallas/fused_dense.py:58",
-        "launches": bf16_cli["served"],
-        "max_abs_err": max(r["max_abs_err"] for r in rows
-                           if r["dtype"] == "bfloat16"),
-        "ms": sum(r["ms"] for r in bf16_path),
-        "plain_ms": sum(r["plain_ms"] for r in bf16_path),
-        "bound_ms": sum(r["bound_ms"] for r in bf16_path),
-        "bound_by": max(("bytes", "operations"), key=lambda by: sum(
-            r["bound_ms"] for r in bf16_path if r["bound_by"] == by)),
+        "launches": get("bf16_cli_phase", "served"),
+        "max_abs_err": max((r["max_abs_err"] for r in rows
+                            if r["dtype"] == "bfloat16"), default=None),
+        "ms": total(r["ms"] for r in bf16_path),
+        "plain_ms": total(r["plain_ms"] for r in bf16_path),
+        "bound_ms": total(r["bound_ms"] for r in bf16_path),
+        "bound_by": bound_by(bf16_path),
         "library_ms": None,  # no single PyTorch call computes this function
         # torch.matmul(h, w) on a precomputed h: the product alone
-        "gemm_ms": sum(r["gemm_ms"] for r in bf16_path),
-        "host_us_per_call": sum(r["host_us"] for r in bf16_path)
-        / len(bf16_path),
-        "ms_batch32": sum(r["ms"] for r in rows if r["batch"] == 32
+        "gemm_ms": total(r["gemm_ms"] for r in bf16_path),
+        "host_us_per_call": mean(r["host_us"] for r in bf16_path),
+        "ms_batch32": total(r["ms"] for r in rows if r["batch"] == 32
                           and r["dtype"] == "bfloat16"),
-        "launches_per_superstep": bf16_train["launches"],
-        "launches_per_cli_epoch": bf16_cli["per_epoch"],
-        "launches_inference_survival": bf16_cli["inference"],
+        "launches_per_superstep": get("bf16_train_phase", "launches"),
+        "launches_per_cli_epoch": get("bf16_cli_phase", "per_epoch"),
+        "launches_inference_survival": get("bf16_cli_phase", "inference"),
         # the kernel's 464 calls in one graphed bf16 superstep
-        "superstep_fused_ms": fused["bf16 + aug"]["fused_kernel_ms"],
-        "densenet264_ms": wide["bfloat16"]["ms"],
-        "densenet264_plain_ms": wide["bfloat16"]["plain_ms"],
-        "densenet264_bound_ms": wide["bfloat16"]["bound_ms"],
-        "densenet264_gemm_ms": wide["bfloat16"]["gemm_ms"],
-        "launches_per_capture_superstep":
-            fused["bf16 + aug"]["launches_per_capture"],
-        "replays_timed_superstep": fused["bf16 + aug"]["replays"],
+        "superstep_fused_ms": get("fused_epoch_phase", "bf16 + aug",
+                                  "fused_kernel_ms"),
+        "densenet264_ms": get("wide_kernel_phase", "bfloat16", "ms"),
+        "densenet264_plain_ms": get("wide_kernel_phase", "bfloat16",
+                                    "plain_ms"),
+        "densenet264_bound_ms": get("wide_kernel_phase", "bfloat16",
+                                    "bound_ms"),
+        "densenet264_gemm_ms": get("wide_kernel_phase", "bfloat16",
+                                   "gemm_ms"),
+        "launches_per_capture_superstep": get(
+            "fused_epoch_phase", "bf16 + aug", "launches_per_capture"),
+        "replays_timed_superstep": get("fused_epoch_phase", "bf16 + aug",
+                                       "replays"),
+        "planar_ms": get("planar_phase", "kernel_58", "bfloat16", "ms"),
+        "planar_plain_ms": get("planar_phase", "kernel_58", "bfloat16",
+                               "plain_ms"),
+        "planar_bound_ms": get("planar_phase", "kernel_58", "bfloat16",
+                               "bound_ms"),
+        "per_rank_of_two_ms": total(r["ms"] for r in rows if r["batch"] == 4
+                                  and r["dtype"] == "bfloat16"),
     }
-    print(json.dumps({"kernels": [entry, bf16_entry]}))
-    print(smi)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
-    return 0
+    return [entry, bf16_entry]
 
 
 if __name__ == "__main__":

@@ -6,6 +6,8 @@
         --blend [--bootstrap] [--no_gradcam] --config config.yaml
     python -m mmnn_sts_torch --images --preop --classification --blend \\
         --split --config config.yaml
+    python -m torch.distributed.run --nproc_per_node 2 -m mmnn_sts_torch \\
+        --images --preop --survival --blend --split --config config.yaml
 
 The same flags, string-boolean mirrors (``--use_images`` etc.) and
 flag-combination asserts as the JAX package's CLI, its config overrides
@@ -22,26 +24,23 @@ Grad-CAM attention maps unless ``--no_gradcam``, the prediction CSVs) with
 ``Hyperparameters.model_weights``; ``--lr_finder`` (``train/lr_finder``,
 where the JAX CLI runs it: after the split, the standardisation and
 ``--resume``); and ``--export_path`` (the servable of ``infer/export``).
+Under ``torch.distributed.run`` each process is a rank of the mesh of
+``TPU.mesh_shape`` / ``mesh_axes`` (``parallel/mesh.py``): its device is
+``cuda:LOCAL_RANK`` (or the CPU with ``--device cpu``), the ranks train as
+one program over the ``data`` axis, and rank 0 alone writes files.
 Cohorts may be NIfTI or DICOM (``Data.image_format``), local or under
 ``s3://`` (with boto3); with ``Data.bucket`` set, training uploads its
 artifacts and survival inference its prediction CSV there, under
 ``Preprocessing.output_dir``.
-``--segmentation`` raises ``NotImplementedError`` naming its ROADMAP.md
-item.
+``--segmentation`` raises ``NotImplementedError``, as the JAX CLI does
+(cli.py:109-120): neither package has a segmentation loop, and the message
+names the cohort builder, ``data/images.build_segmentation_cohort``.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
-
-# flag -> (what it runs, the name of its ROADMAP.md Queue 1 item)
-_NOT_PORTED = (
-    ("segmentation", "segmentation (the JAX package has no loop for it "
-                     "either; the cohort builder is)",
-     "The segmentation cohort builder"),
-)
-
 
 def str_to_bool(arg: str) -> bool:
     if arg.lower() == "false":
@@ -134,11 +133,13 @@ def main(argv=None) -> int:
     assert any(task_flags), (
         "Must specify one of --classification , --survival , or --segmentation"
     )
-    for flag, what, item in _NOT_PORTED:
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag}: {what} is not ported to mmnn_sts_torch yet "
-                f"(ROADMAP.md Queue 1, '{item}')")
+    if args.segmentation:
+        raise NotImplementedError(
+            "segmentation training is not implemented (the reference has no "
+            "segmentation loop either); use "
+            "mmnn_sts_torch.data.images.build_segmentation_cohort to load "
+            "aligned image/mask cohorts"
+        )
 
     # heavy imports deferred so --help stays fast
     import torch
@@ -148,6 +149,8 @@ def main(argv=None) -> int:
     from .infer.export import resolve_device
     from .models import build_model
     from .models.registry import npz_layout
+    from .parallel.mesh import (
+        is_writer, make_mesh, maybe_initialize_distributed, rank_device)
     from .pipeline import (
         TaskFlags,
         load_cohort,
@@ -202,7 +205,12 @@ def main(argv=None) -> int:
 
     hp = cfg.hyperparameters
     os.makedirs(args.output_path, exist_ok=True)
-    logger.info(f"device: {device}")
+    if maybe_initialize_distributed(device):
+        device = rank_device(device)
+    mesh = make_mesh(cfg.tpu.mesh_shape, tuple(cfg.tpu.mesh_axes))
+    logger.info(f"device: {device}; mesh {list(mesh.shape)} over "
+                f"{list(mesh.axis_names)}, rank {mesh.rank}, backend "
+                f"{mesh.backend or 'none (one process)'}")
 
     bundle = load_cohort(cfg, flags)
     train_uids, val_uids, test_uids = resolve_splits(cfg, flags, bundle,
@@ -233,7 +241,8 @@ def main(argv=None) -> int:
     optimizer, schedule = make_optimizer(
         model.parameters(), hp.learning_rate, spe, hp.epochs, hp.momentum,
         hp.weight_decay)
-    state = create_train_state(model, optimizer, schedule, seed=hp.seed)
+    state = create_train_state(model, optimizer, schedule, seed=hp.seed,
+                               mesh=mesh)
 
     # weights: the trained ones for inference and an export, pretrained
     # ones otherwise
@@ -279,11 +288,14 @@ def main(argv=None) -> int:
     if args.lr_finder:
         from .train.lr_finder import find_lr
 
-        find_lr(cfg, flags, bundle, device)
+        find_lr(cfg, flags, bundle, device, mesh=mesh)
         return 0
 
     if args.export_path:
         from .infer.export import export_forward, model_spec
+
+        if not is_writer():
+            return 0
 
         spec = model_spec(cfg, flags.images, flags.preop, flags.postop,
                           flags.blend, num_tabular)
@@ -322,7 +334,7 @@ def main(argv=None) -> int:
     else:
         train_classification(state, train_ds, val_ds, loop_cfg)
 
-    if cfg.data.bucket:
+    if cfg.data.bucket and is_writer():
         # the artifacts' upload: best effort, failures logged
         from .utils.store import train_artifact_names, upload_artifacts
 

@@ -16,7 +16,6 @@ Validation: t1t2 modality requires in_channels == 2.
 from __future__ import annotations
 
 import dataclasses
-import math
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -122,8 +121,10 @@ class TPUConfig:
     ``fused_epoch`` (each training step one CUDA graph replay,
     ``train/graphs.py``) and ``device_resident_dataset`` (false: the splits
     stay in host memory and stream to the card, ``data/streaming.py``); of
-    ``mesh_shape`` and ``mesh_axes`` it runs the one-card defaults only,
-    and the others raise ``ConfigurationError``. ``microbatch_group`` is
+    ``mesh_shape`` and ``mesh_axes`` it runs the ``data`` axis, over the
+    ranks of ``torch.distributed`` (``parallel/mesh.py``); a ``space``
+    axis and a ``model`` axis of more than one device raise
+    ``ConfigurationError``. ``microbatch_group`` is
     parsed and not read: it groups microbatches inside the JAX superstep's
     program and changes no result."""
 
@@ -242,21 +243,24 @@ def validate_config(cfg: Config) -> None:
             f"Unsupported cox_ties: {cfg.hyperparameters.cox_ties} "
             "(options: 'breslow', 'efron')"
         )
-    # what the port parses but does not run: a mesh of more than one
-    # device (-1 is the one card) and the space axis
+    # what the port parses but does not run: the space axis, and a model
+    # axis of more than one device (the JAX package reserves it and
+    # replicates over it). The data axis runs over torch.distributed ranks
+    # (parallel/mesh.py); make_mesh checks the shape against the world.
     tpu = cfg.tpu
-    devices = math.prod(1 if n == -1 else n for n in tpu.mesh_shape)
-    if devices > 1:
-        raise ConfigurationError(
-            f"TPU.mesh_shape {tpu.mesh_shape} asks for {devices} devices; "
-            "mmnn_sts_torch runs on one card (ROADMAP.md Queue 1, "
-            "'Multi-card meshes'); use [-1] or [1]"
-        )
     if "space" in tpu.mesh_axes:
         raise ConfigurationError(
             f"TPU.mesh_axes {tpu.mesh_axes} names 'space': spatial "
             "partitioning is not ported to mmnn_sts_torch yet (ROADMAP.md "
-            "Queue 1, 'Multi-card meshes'); use ['data']"
+            "Queue 1, 'The space and model axes'); use ['data']"
+        )
+    axes = dict(zip(tpu.mesh_axes, tpu.mesh_shape))
+    if axes.get("model", 1) != 1:
+        raise ConfigurationError(
+            f"TPU.mesh_shape {tpu.mesh_shape} over {tpu.mesh_axes} gives the "
+            "'model' axis more than one device: it is not ported to "
+            "mmnn_sts_torch yet (ROADMAP.md Queue 1, 'The space and model "
+            "axes'); use a 'data' axis alone"
         )
 
 

@@ -6,13 +6,14 @@ The JAX package saves parameters flat, one array per key
 ``batch_stats/<module path>/<leaf>``. The port's modules carry the JAX
 module names, so a key maps to a ``state_dict`` name by its path, with:
 
-* convolution kernels transposed ``(k, k, k, I, O) -> (O, I, k, k, k)``;
+* convolution kernels transposed ``(k, k, k, I, O) -> (O, I, k, k, k)``,
+  or ``(k, k, I, O) -> (O, I, k, k)`` for a 2D model;
 * dense kernels transposed ``(I, O) -> (O, I)``;
 * BatchNorm ``<m>/BatchNorm_0/{scale, bias}`` + ``{mean, var}`` ->
   ``<m>.{weight, bias, running_mean, running_var}``;
 * the DenseNet bottleneck read from either JAX layout into the one fused
   port module ``<layer>.fused1.{scale, bias, kernel, mean, var}``: the
-  unfused ``norm1/BatchNorm_0`` + ``conv1/kernel (1, 1, 1, Cin, Cout)``, or
+  unfused ``norm1/BatchNorm_0`` + ``conv1/kernel (1, 1, [1,] Cin, Cout)``, or
   the fused ``fused1/{scale, bias, kernel (Cin, Cout)}`` + ``{mean, var}``.
 
 ``to_jax_flat`` writes either layout back, so both round-trip exactly.
@@ -52,8 +53,10 @@ def _port_entry(key: str, value: np.ndarray) -> tuple[str, np.ndarray]:
     if leaf == "kernel" and _is_bottleneck(path, "conv1"):
         return ".".join(path[:-1] + ["fused1", "kernel"]), \
             value.reshape(value.shape[-2:])
-    if leaf == "kernel" and value.ndim == 5:
-        return ".".join(path + ["weight"]), value.transpose(4, 3, 0, 1, 2)
+    if leaf == "kernel" and value.ndim in (4, 5):
+        spatial = tuple(range(value.ndim - 2))
+        return ".".join(path + ["weight"]), value.transpose(
+            (value.ndim - 1, value.ndim - 2) + spatial)
     if leaf == "kernel" and value.ndim == 2:
         return ".".join(path + ["weight"]), value.T
     if leaf == "bias" and value.ndim == 1:
@@ -93,14 +96,16 @@ def to_jax_flat(state_dict: Mapping[str, torch.Tensor],
                 key = path + [leaf]
             elif leaf == "kernel":
                 key = path[:-1] + ["conv1", "kernel"]
-                value = value.reshape((1, 1, 1) + value.shape)
+                # the layer's 3x3(x3) convolution says how many 1s
+                conv2 = state_dict[".".join(path[:-1] + ["conv2", "weight"])]
+                value = value.reshape((1,) * (conv2.dim() - 2) + value.shape)
             else:
                 key = path[:-1] + ["norm1", "BatchNorm_0", leaf]
         elif ".".join(path + ["running_mean"]) in state_dict:  # a BatchNorm
             key = path + ["BatchNorm_0", _BN_LEAVES_BACK[leaf]]
-        elif leaf == "weight" and value.ndim == 5:
+        elif leaf == "weight" and value.ndim in (4, 5):
             key = path + ["kernel"]
-            value = value.transpose(2, 3, 4, 1, 0)
+            value = value.transpose(tuple(range(2, value.ndim)) + (1, 0))
         elif leaf == "weight" and value.ndim == 2:
             key = path + ["kernel"]
             value = value.T

@@ -1,8 +1,8 @@
 """Image manifest building + host-side volume preprocessing (counterpart of
 the JAX package's data/images.py: ``resize_volume`` and ``apply_mask``
 45-96, ``PatientRecord`` 98-106, the manifests 109-357, ``_load_dicom_pair``
-359-384, ``load_patient_volume`` 387-419, ``ImageCohort`` 422-433 and
-``build_manifest_any`` / ``build_image_cohort`` / ``_load_modality_volumes``
+359-384, ``load_patient_volume`` 387-419, ``ImageCohort`` 422-433,
+``build_segmentation_cohort`` 436-463 and ``build_manifest_any`` / ``build_image_cohort`` / ``_load_modality_volumes``
 467-569).
 
     manifest ({NIfTI folders, DICOM series trees} x {local, s3://})
@@ -349,6 +349,32 @@ class ImageCohort:
 
     uids: np.ndarray  # (N,)
     volumes: np.ndarray  # (N, D, H, W, C) float32
+
+
+def build_segmentation_cohort(
+    patient_directory: str,
+    patient_key_csv: str,
+    spatial_size=C.SPATIAL_SIZE,
+) -> tuple[ImageCohort, ImageCohort]:
+    """(images, masks) cohorts for segmentation (images.py:436-463): each
+    record of the local NIfTI manifest, image and mask read as float32 and
+    resized to ``spatial_size`` by the numpy path, the mask binarised again
+    at 0.5; both (N, *spatial, 1) with the same uids. No training loop
+    reads them, in either package."""
+    records = build_manifest(patient_directory, patient_key_csv)
+    imgs, masks, uids = [], [], []
+    for rec in records:
+        image = load_nifti(rec.image_path, dtype=np.float32)
+        mask = load_nifti(rec.mask_path, dtype=np.float32)
+        imgs.append(resize_volume(image, spatial_size)[..., None])
+        masks.append((resize_volume(mask, spatial_size) > 0.5).astype(
+            np.float32)[..., None])
+        uids.append(rec.uid)
+    uids = np.asarray(uids, dtype=np.int64)
+    return (
+        ImageCohort(uids=uids, volumes=np.stack(imgs).astype(np.float32)),
+        ImageCohort(uids=uids, volumes=np.stack(masks).astype(np.float32)),
+    )
 
 
 def build_manifest_any(directory: str, patient_key_csv: str,

@@ -22,6 +22,11 @@ intervals, the Grad-CAM attention maps and the prediction CSVs
 A host-resident test split (``TPU.device_resident_dataset: false``) is
 forwarded in chunks, each copied to the card alone (``train/evaluate``),
 and Grad-CAM copies one patient at a time.
+
+Under a mesh of ranks (``state.mesh``) the forward is sharded over the
+``data`` axis and its predictions gathered (``train/steps.py``), so every
+rank computes the same C-indices or F1s; rank 0 alone draws the Grad-CAM
+maps (a batch of one) and writes the files.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from ..ops.metrics import (
     concordance_index_resamples,
     thresholded_f1s,
 )
+from ..parallel.mesh import is_writer
 from ..train.evaluate import classification_eval_split, survival_eval_split
 from ..utils.logging import get_logger
 from ..utils.store import upload_artifacts
@@ -103,7 +109,7 @@ def inference_survival(state, ds: DeviceDataset, cfg: InferenceConfig):
     events = ds.events.cpu().numpy()
     durations = ds.durations.cpu().numpy()
 
-    if cfg.gradcam:
+    if cfg.gradcam and is_writer(state.mesh):
         export_attention_maps(state, ds, cfg, survival=True)
 
     if cfg.bootstrap:
@@ -123,7 +129,7 @@ def inference_survival(state, ds: DeviceDataset, cfg: InferenceConfig):
     c_indices = c_indices_per_class(preds, events, durations)
     logger.info(f"Inference complete - C-Indices: {c_indices}")
     logger.info(f"Mean C-Index: {np.mean(c_indices)}")
-    if cfg.save_preds:
+    if cfg.save_preds and is_writer(state.mesh):
         save_survival_predictions_csv(
             os.path.join(cfg.output_dir, "survival_model_predictions.csv"),
             ds.uids, preds, events, durations)
@@ -143,14 +149,14 @@ def inference_classification(state, ds: DeviceDataset,
         chunk=cfg.eval_chunk)["preds"]
     probs, pred_lbl, f1s = thresholded_f1s(_head0(logits, cfg.blend), labels)
 
-    if cfg.gradcam:
+    if cfg.gradcam and is_writer(state.mesh):
         export_attention_maps(state, ds, cfg, survival=False,
                               pred_labels=pred_lbl, labels=labels,
                               probs=probs)
 
     logger.info(f"{f1s}")
     logger.info(f"{np.nanmean(f1s)}")
-    if cfg.save_preds:
+    if cfg.save_preds and is_writer(state.mesh):
         save_probabilities_csv(
             os.path.join(cfg.output_dir, "model_probabilities.csv"), ds.uids,
             probs, labels)

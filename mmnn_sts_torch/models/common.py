@@ -2,10 +2,15 @@
 package's models/common.py).
 
 Image activations are ``(N, C, D, H, W)`` tensors in
-``torch.channels_last_3d`` memory format: the same bytes as the JAX
-package's ``(N, D, H, W, C)`` layout, so the DenseNet bottleneck sees a
-free ``(voxels, channels)`` view. Features are dim 1 everywhere, so one
-statistics function serves the image and the clinical (N, C) BatchNorms.
+``torch.channels_last_3d`` memory format (``spatial_dims: 3``) or
+``(N, C, H, W)`` in ``torch.channels_last`` (``spatial_dims: 2``): the same
+bytes as the JAX package's ``(N, *spatial, C)`` layout, so the DenseNet
+bottleneck sees a free ``(voxels, channels)`` view. Features are dim 1
+everywhere, so one statistics function serves the image and the clinical
+(N, C) BatchNorms. The layers take their number of spatial dimensions as
+the JAX package's do (common.py:177-243): ``conv(..., spatial_dims=)``
+builds a 2D or 3D convolution, and the pools and the channel dropout
+follow the input's rank.
 
 Train mode is ``module.training``, as in torch. A ``sample_mask`` (N,) of
 0/1 marks the valid samples of a wrap-padded ragged batch; dropout draws
@@ -23,12 +28,15 @@ from __future__ import annotations
 
 import contextlib
 import itertools
+import math
 import threading
 from typing import Sequence
 
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from ..parallel import mesh
 
 CHANNELS_LAST = torch.channels_last_3d
 BN_EPS = 1e-5
@@ -37,6 +45,12 @@ BN_MOMENTUM = 0.9
 # stddev of a standard normal truncated to [-2, 2]: flax's lecun_normal
 # divides by it so that the truncated draw keeps variance 1 / fan_in
 _TRUNCATED_STD = 0.87962566103423978
+
+
+def channels_last(x: torch.Tensor) -> torch.Tensor:
+    """x in the channels-last memory format of its rank (4 or 5 dims)."""
+    fmt = CHANNELS_LAST if x.dim() == 5 else torch.channels_last
+    return x.contiguous(memory_format=fmt)
 
 
 def kaiming_normal_(w: torch.Tensor, fan_in: int) -> torch.Tensor:
@@ -64,22 +78,37 @@ def compute_batch_stats(x, mask=None):
     * ``any_valid`` is None without ``mask``; with one (a (N,) 0/1 tensor)
       only valid samples count, and a fully masked batch gives identity
       statistics (mean 0, var 1).
-    """
+
+    Where x is one rank's rows of a batch sharded over the ``data`` axis
+    (``parallel/mesh.sharded``), the moments go over the ranks in one
+    all-reduce, so the statistics are the whole batch's: without a mask
+    the ranks' ``(E[x], E[x^2])`` are averaged (every rank holds as many
+    rows, and one rank's average is its own bits), with one the sums
+    ``(sum x, sum x^2, n_valid)`` are added."""
     xf = x.float()
     dims = (0,) + tuple(range(2, x.dim()))
     zero = xf.new_zeros(())
+    shard = mesh.active_shard()
     if mask is None:
-        mean = xf.mean(dims)
-        var = torch.maximum(xf.square().mean(dims) - mean.square(), zero)
         n = x.numel() // x.shape[1]
+        mean, mean_sq = xf.mean(dims), xf.square().mean(dims)
+        if shard is not None:
+            mean, mean_sq = (shard.all_reduce(torch.cat([mean, mean_sq]))
+                             / shard.size).split(len(mean))
+            n *= shard.size
+        var = torch.maximum(mean_sq - mean.square(), zero)
         return mean, var, var * (n / max(n - 1, 1)), None
     mf = mask.float().view((-1,) + (1,) * (x.dim() - 1))
     n_valid = mf.sum() * (x[0, 0].numel())
+    s1, s2 = (xf * mf).sum(dims), (xf.square() * mf).sum(dims)
+    if shard is not None:
+        s1, s2, n_valid = shard.all_reduce(
+            torch.cat([s1, s2, n_valid.view(1)])).split([len(s1)] * 2 + [1])
+        n_valid = n_valid[0]
     denom = torch.clamp(n_valid, min=1.0)
     any_valid = n_valid > 0
-    mean = (xf * mf).sum(dims) / denom
-    var = torch.maximum((xf.square() * mf).sum(dims) / denom - mean.square(),
-                        zero)
+    mean = s1 / denom
+    var = torch.maximum(s2 / denom - mean.square(), zero)
     mean = torch.where(any_valid, mean, zero)
     var = torch.where(any_valid, var, torch.ones_like(var))
     unbiased = var * (n_valid / torch.clamp(n_valid - 1.0, min=1.0))
@@ -97,13 +126,19 @@ _draws = threading.local()
 
 
 def dropout_uniforms(shape, generator, device) -> torch.Tensor:
-    """``torch.rand(shape)`` from ``generator``: the dropout masks' draws.
-    Inside ``remat_call``'s recompute the forward's draws come back in
-    order instead, and nothing is drawn."""
+    """``torch.rand(shape)`` from ``generator``: the dropout masks' draws
+    (where the batch is one rank's rows of a sharded one, that rank's rows
+    of the whole batch's draws). Inside ``remat_call``'s recompute the
+    forward's draws come back in order instead, and nothing is drawn."""
     replay = getattr(_draws, "replay", None)
     if replay is not None:
         return next(replay)
-    u = torch.rand(shape, generator=generator, device=device)
+    shard = mesh.active_shard()
+    if shard is None:
+        u = torch.rand(shape, generator=generator, device=device)
+    else:  # the whole batch's draws, as every rank draws them; its rows
+        u = shard.rows(torch.rand((shape[0] * shard.size,) + tuple(shape[1:]),
+                                  generator=generator, device=device))
     record = getattr(_draws, "record", None)
     if record is not None:
         record.append(u)
@@ -230,8 +265,8 @@ class Dropout(nn.Module):
         return x * (keep.to(x.dtype) / (1.0 - self.p))
 
 
-class Conv3d(nn.Conv3d):
-    """``nn.Conv3d`` computing in ``compute_dtype`` where it is set (flax
+class _ComputeDtype:
+    """A convolution computing in ``compute_dtype`` where it is set (flax
     ``Conv`` with ``dtype``)."""
 
     compute_dtype: torch.dtype | None = None
@@ -243,7 +278,15 @@ class Conv3d(nn.Conv3d):
         y = self._conv_forward(x.to(dt), self.weight.to(dt), None)
         if self.bias is None:
             return y
-        return y + self.bias.to(dt).view(-1, 1, 1, 1)
+        return y + self.bias.to(dt).view((-1,) + (1,) * (y.dim() - 2))
+
+
+class Conv2d(_ComputeDtype, nn.Conv2d):
+    """``nn.Conv2d`` computing in ``compute_dtype``."""
+
+
+class Conv3d(_ComputeDtype, nn.Conv3d):
+    """``nn.Conv3d`` computing in ``compute_dtype``."""
 
 
 class Linear(nn.Linear):
@@ -260,24 +303,26 @@ class Linear(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
 
 
-def _triple(v) -> tuple[int, int, int]:
-    return (v,) * 3 if isinstance(v, int) else tuple(v)
+def _ntuple(v, n: int) -> tuple[int, ...]:
+    return (v,) * n if isinstance(v, int) else tuple(v)
 
 
 def conv(in_channels: int, out_channels: int, kernel: int | Sequence[int],
          stride: int | Sequence[int] = 1,
          padding: int | Sequence[int] | str = 0,
          dtype: torch.dtype | None = None, use_bias: bool = False,
-         fan_out_init: bool = False) -> Conv3d:
-    """3D convolution as the JAX package's ``conv`` (common.py:215-243),
-    computing in ``dtype``: ``kernel``, ``stride`` and ``padding`` per axis
-    or one for all; an integer padding pads both sides (torch-style), and
-    JAX's ``"VALID"`` (none) and ``"SAME"`` are taken where SAME pads both
-    sides alike (a 1-wide kernel, or stride 1 and an odd kernel: every use
-    in the models). ``use_bias`` adds a zero-initialised bias. The kernel
-    init is kaiming-normal over the fan-in, or over the fan-out with
-    ``fan_out_init`` (``kaiming_normal_out``, common.py:27)."""
-    kernel, stride = _triple(kernel), _triple(stride)
+         fan_out_init: bool = False, spatial_dims: int = 3):
+    """An N-D convolution (``spatial_dims`` 2 or 3) as the JAX package's
+    ``conv`` (common.py:215-243), computing in ``dtype``: ``kernel``,
+    ``stride`` and ``padding`` per axis or one for all; an integer padding
+    pads both sides (torch-style), and JAX's ``"VALID"`` (none) and
+    ``"SAME"`` are taken where SAME pads both sides alike (a 1-wide kernel,
+    or stride 1 and an odd kernel: every use in the models). ``use_bias``
+    adds a zero-initialised bias. The kernel init is kaiming-normal over
+    the fan-in, or over the fan-out with ``fan_out_init``
+    (``kaiming_normal_out``, common.py:27)."""
+    kernel = _ntuple(kernel, spatial_dims)
+    stride = _ntuple(stride, spatial_dims)
     if padding == "VALID":
         padding = 0
     elif padding == "SAME":
@@ -286,10 +331,11 @@ def conv(in_channels: int, out_channels: int, kernel: int | Sequence[int],
             raise ValueError(f"SAME padding of kernel {kernel} at stride "
                              f"{stride} pads one side more than the other")
         padding = tuple((k - 1) // 2 for k in kernel)
-    c = Conv3d(in_channels, out_channels, kernel, stride=stride,
-               padding=padding, bias=use_bias)
+    cls = {2: Conv2d, 3: Conv3d}[spatial_dims]
+    c = cls(in_channels, out_channels, kernel, stride=stride,
+            padding=padding, bias=use_bias)
     fan = out_channels if fan_out_init else in_channels
-    kaiming_normal_(c.weight, fan * kernel[0] * kernel[1] * kernel[2])
+    kaiming_normal_(c.weight, fan * math.prod(kernel))
     if use_bias:
         nn.init.zeros_(c.bias)
     c.compute_dtype = dtype
@@ -312,18 +358,22 @@ def dense(in_features: int, out_features: int,
     return d
 
 
+_POOL_FN = {"max": {2: F.max_pool2d, 3: F.max_pool3d},
+            "avg": {2: F.avg_pool2d, 3: F.avg_pool3d}}
+
+
 class _MaxPool(torch.autograd.Function):
-    """``F.max_pool3d`` whose backward adds each input's gradient in a
-    fixed order: torch's CPU order (the outputs in row-major order, each
-    add rounded to the gradient's dtype), as one strided add into a padded
-    buffer per offset in the window, the last offset first. The card's own
-    backward adds with atomics, so two runs of one training step would
-    differ in the last bits of the stem's gradients."""
+    """``F.max_pool2d`` / ``max_pool3d`` whose backward adds each input's
+    gradient in a fixed order: torch's CPU order (the outputs in row-major
+    order, each add rounded to the gradient's dtype), as one strided add
+    into a padded buffer per offset in the window, the last offset first.
+    The card's own backward adds with atomics, so two runs of one training
+    step would differ in the last bits of the stem's gradients."""
 
     @staticmethod
     def forward(ctx, x, window, stride, padding):
-        out, idx = F.max_pool3d(x, window, stride, padding,
-                                return_indices=True)
+        pool = _POOL_FN["max"][x.dim() - 2]
+        out, idx = pool(x, window, stride, padding, return_indices=True)
         ctx.save_for_backward(idx)
         ctx.geometry = (x.shape, window, stride, padding)
         return out
@@ -331,57 +381,66 @@ class _MaxPool(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
-        (n, c, d, h, w), window, stride, padding = ctx.geometry
-        od, oh, ow = g.shape[2:]
-        starts = [torch.arange(o, device=g.device) * stride - padding
-                  for o in (od, oh, ow)]
-        corner = ((starts[0].view(-1, 1, 1) * h + starts[1].view(1, -1, 1))
-                  * w + starts[2].view(1, 1, -1))
-        # each output's argmax as its offset a*h*w + b*w + c in the window
+        shape, window, stride, padding = ctx.geometry
+        (n, c), spatial = shape[:2], shape[2:]
+        nd = len(spatial)
+        outs = g.shape[2:]
+        # each output's window corner as a flat index into the input plane
+        # (row-major over the spatial axes), and its argmax as the offset
+        # from that corner
+        corner = torch.zeros((), dtype=torch.int64, device=g.device)
+        for axis, (o, size) in enumerate(zip(outs, spatial)):
+            start = torch.arange(o, device=g.device) * stride - padding
+            corner = corner.unsqueeze(-1) * size + start.view(
+                (1,) * axis + (-1,))
         offset = idx - corner
         fmt = (torch.contiguous_format if g.is_contiguous()
-               else CHANNELS_LAST)
-        acc = torch.zeros((n, c, d + 2 * padding, h + 2 * padding,
-                           w + 2 * padding), dtype=g.dtype, device=g.device
+               else CHANNELS_LAST if nd == 3 else torch.channels_last)
+        acc = torch.zeros((n, c) + tuple(s + 2 * padding for s in spatial),
+                          dtype=g.dtype, device=g.device
                           ).contiguous(memory_format=fmt)
-        span = [stride * (o - 1) + 1 for o in (od, oh, ow)]
+        span = [stride * (o - 1) + 1 for o in outs]
         # an input's windows in row-major order are its offsets in reverse
-        for a, b, k in itertools.product(range(window - 1, -1, -1),
-                                         repeat=3):
-            acc[:, :, a:a + span[0]:stride, b:b + span[1]:stride,
-                k:k + span[2]:stride].add_(
-                    g.masked_fill(offset != (a * h + b) * w + k, 0))
-        grad = acc[:, :, padding:padding + d, padding:padding + h,
-                   padding:padding + w]
+        for taps in itertools.product(range(window - 1, -1, -1), repeat=nd):
+            flat = 0
+            for t, size in zip(taps, spatial):
+                flat = flat * size + t
+            region = tuple(slice(t, t + sp, stride)
+                           for t, sp in zip(taps, span))
+            acc[(slice(None), slice(None)) + region].add_(
+                g.masked_fill(offset != flat, 0))
+        grad = acc[(slice(None), slice(None)) + tuple(
+            slice(padding, padding + s) for s in spatial)]
         return grad.contiguous(memory_format=fmt), None, None, None
 
 
 def max_pool(x, window: int, stride: int, padding: int):
-    """Max pool with symmetric integer padding (padding counts as -inf);
-    where a gradient is taken, its backward is deterministic
-    (``_MaxPool``)."""
+    """Max pool over x's spatial dims (2 or 3) with symmetric integer
+    padding (padding counts as -inf); where a gradient is taken, its
+    backward is deterministic (``_MaxPool``)."""
     if torch.is_grad_enabled() and x.requires_grad:
         return _MaxPool.apply(x, window, stride, padding)
-    return F.max_pool3d(x, window, stride, padding)
+    return _POOL_FN["max"][x.dim() - 2](x, window, stride, padding)
 
 
 def avg_pool(x, window: int, stride: int):
-    """Average pool, VALID padding. Below float32 it is flax's
-    ``avg_pool`` (common.py:185-188): a running sum over the window in
-    row-major order, each addition rounded to x's dtype, then divided by
-    the window's size (``F.avg_pool3d`` sums in float32)."""
+    """Average pool over x's spatial dims, VALID padding. Below float32 it
+    is flax's ``avg_pool`` (common.py:185-188): a running sum over the
+    window in row-major order, each addition rounded to x's dtype, then
+    divided by the window's size (``F.avg_pool3d`` sums in float32)."""
+    nd = x.dim() - 2
     if x.dtype == torch.float32:
-        return F.avg_pool3d(x, window, stride)
+        return _POOL_FN["avg"][nd](x, window, stride)
     out = [(n - window) // stride + 1 for n in x.shape[2:]]
     total = None
-    for i, j, k in itertools.product(range(window), repeat=3):
-        piece = x[:, :, i:i + stride * (out[0] - 1) + 1:stride,
-                  j:j + stride * (out[1] - 1) + 1:stride,
-                  k:k + stride * (out[2] - 1) + 1:stride]
+    for taps in itertools.product(range(window), repeat=nd):
+        piece = x[(slice(None), slice(None)) + tuple(
+            slice(t, t + stride * (o - 1) + 1, stride)
+            for t, o in zip(taps, out))]
         total = piece if total is None else total + piece
-    return total / window ** 3
+    return total / window ** nd
 
 
 def global_avg_pool(x):
-    """(N, C, D, H, W) -> (N, C)."""
-    return x.mean(dim=(2, 3, 4))
+    """(N, C, *spatial) -> (N, C)."""
+    return x.mean(dim=tuple(range(2, x.dim())))

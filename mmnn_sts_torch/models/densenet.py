@@ -1,10 +1,13 @@
-"""3D DenseNet with the custom feature head or the vanilla one
-(counterpart of the JAX package's models/densenet.py).
+"""2D or 3D DenseNet with the custom feature head or the vanilla one
+(counterpart of the JAX package's models/densenet.py). ``spatial_dims``
+(``ImageModel.spatial_dims``) is 3 for (N, D, H, W, C) volumes and 2 for
+(N, H, W, C) images: every convolution, pool and channel dropout then
+works in 2D, and the bottleneck's M is B x H x W instead of B x D x H x W.
 
-* ``DenseLayer``: fused BN -> ReLU -> 1x1x1 conv (the bottleneck, through
-  ``ops.fused_dense``) -> BN -> ReLU -> 3x3x3 conv -> channel dropout ->
-  concat with the input.
-* ``Transition``: BN -> ReLU -> 1x1x1 conv (in // 2) -> avg pool 2.
+* ``DenseLayer``: fused BN -> ReLU -> 1x1(x1) conv (the bottleneck,
+  through ``ops.fused_dense``) -> BN -> ReLU -> 3x3(x3) conv -> channel
+  dropout -> concat with the input.
+* ``Transition``: BN -> ReLU -> 1x1(x1) conv (in // 2) -> avg pool 2.
 * ``DenseNet``: conv0 (7, stride 2, pad 3) -> BN -> ReLU -> max pool
   (3, 2, 1) -> blocks and transitions -> norm5, then the ``features`` head
   (ReLU -> global average pool -> Linear(feature_channels) -> dropout; with
@@ -39,11 +42,11 @@ from torch.nn import functional as F
 
 from ..ops.fused_dense import bn_relu_conv1x1
 from .common import (
-    CHANNELS_LAST,
     BN_EPS,
     BatchNorm,
     Dropout,
     avg_pool,
+    channels_last,
     compute_batch_stats,
     conv,
     dense,
@@ -79,7 +82,7 @@ class FusedBottleneck(nn.Module):
         self.register_buffer("var", torch.ones(in_channels))
 
     def forward(self, x, sample_mask=None):
-        """x: (N, C, D, H, W), channels-last in memory."""
+        """x: (N, C, *spatial), channels-last in memory."""
         if self.training:
             mean, var, unbiased, any_valid = compute_batch_stats(x, sample_mask)
             update_running_stats(self.mean, self.var, mean, unbiased,
@@ -88,47 +91,49 @@ class FusedBottleneck(nn.Module):
             mean, var = self.mean, self.var
         dtype = self.compute_dtype or x.dtype
         y = bn_relu_conv1x1(
-            x.to(dtype).permute(0, 2, 3, 4, 1), self.scale, self.bias, mean,
+            x.to(dtype).movedim(1, -1), self.scale, self.bias, mean,
             var, self.kernel.to(dtype), eps=BN_EPS,
         )
-        return y.permute(0, 4, 1, 2, 3)
+        return y.movedim(-1, 1)
 
 
 class DenseLayer(nn.Module):
     def __init__(self, in_channels: int, growth_rate: int, bn_size: int,
-                 dropout_prob: float = 0.0, dtype: torch.dtype | None = None):
+                 dropout_prob: float = 0.0, dtype: torch.dtype | None = None,
+                 spatial_dims: int = 3):
         super().__init__()
         self.fused1 = FusedBottleneck(in_channels, bn_size * growth_rate,
                                       dtype)
         self.norm2 = BatchNorm(bn_size * growth_rate, dtype)
         self.conv2 = conv(bn_size * growth_rate, growth_rate, 3, padding=1,
-                          dtype=dtype)
+                          dtype=dtype, spatial_dims=spatial_dims)
         self.dropout = Dropout(dropout_prob, channels=True)
 
     def forward(self, x, sample_mask=None, generator=None, captured=None):
-        """``captured``: a list that receives the 3x3x3 convolution's output
-        (before dropout), the Grad-CAM target of the last layer."""
+        """``captured``: a list that receives the 3x3(x3) convolution's
+        output (before dropout), the Grad-CAM target of the last layer."""
         y = self.conv2(F.relu(self.norm2(self.fused1(x, sample_mask),
                                          sample_mask)))
         if captured is not None:
             captured.append(y)
         y = self.dropout(y, generator)
-        return torch.cat([x, y.contiguous(memory_format=CHANNELS_LAST)], dim=1)
+        return torch.cat([x, channels_last(y)], dim=1)
 
 
 class Transition(nn.Module):
     def __init__(self, in_channels: int, out_channels: int,
-                 dtype: torch.dtype | None = None):
+                 dtype: torch.dtype | None = None, spatial_dims: int = 3):
         super().__init__()
         self.norm = BatchNorm(in_channels, dtype)
-        self.conv = conv(in_channels, out_channels, 1, dtype=dtype)
+        self.conv = conv(in_channels, out_channels, 1, dtype=dtype,
+                         spatial_dims=spatial_dims)
 
     def forward(self, x, sample_mask=None):
         return avg_pool(self.conv(F.relu(self.norm(x, sample_mask))), 2, 2)
 
 
 class DenseNet(nn.Module):
-    """3D DenseNet with backbone / features / class_layers split.
+    """N-D DenseNet with backbone / features / class_layers split.
 
     ``out_channels=None`` builds no ``class_layers`` head: inside the
     multimodal model the image encoder only contributes its features, and
@@ -148,25 +153,28 @@ class DenseNet(nn.Module):
         dropout_prob: float = 0.0,
         dtype: torch.dtype | None = None,
         remat: bool = False,
+        spatial_dims: int = 3,
     ):
         super().__init__()
         self.block_config = tuple(block_config)
         self.remat = remat
+        self.spatial_dims = spatial_dims
         self.conv0 = conv(in_channels, init_features, 7, stride=2, padding=3,
-                          dtype=dtype)
+                          dtype=dtype, spatial_dims=spatial_dims)
         self.norm0 = BatchNorm(init_features, dtype)
         ch = init_features
         for i, num_layers in enumerate(self.block_config):
             for j in range(num_layers):
                 self.add_module(
                     f"block{i + 1}_layer{j + 1}",
-                    DenseLayer(ch, growth_rate, bn_size, dropout_prob, dtype))
+                    DenseLayer(ch, growth_rate, bn_size, dropout_prob, dtype,
+                               spatial_dims))
                 ch += growth_rate
             if i == len(self.block_config) - 1:
                 self.norm5 = BatchNorm(ch, dtype)
             else:
                 self.add_module(f"transition{i + 1}",
-                                Transition(ch, ch // 2, dtype))
+                                Transition(ch, ch // 2, dtype, spatial_dims))
                 ch //= 2
         self.vanilla = feature_channels is None
         if not self.vanilla:
@@ -177,7 +185,7 @@ class DenseNet(nn.Module):
             self.out = dense(ch, out_channels, dtype)
 
     def backbone(self, x, sample_mask=None, generator=None, captured=None):
-        """x: (N, C, D, H, W) channels-last -> final BN'd feature map. The
+        """x: (N, C, *spatial) channels-last -> final BN'd feature map. The
         last dense layer appends its Grad-CAM target to ``captured``, where
         one is given (densenet.py:309-323). With ``remat`` in train mode
         every other dense layer and each transition run under
@@ -188,7 +196,7 @@ class DenseNet(nn.Module):
         for i, num_layers in enumerate(self.block_config):
             # pooling may hand back another memory format; the dense block's
             # bottlenecks need channels-last, so restore it once per block
-            x = x.contiguous(memory_format=CHANNELS_LAST)
+            x = channels_last(x)
             for j in range(num_layers):
                 target = i == last and j == num_layers - 1
                 layer = getattr(self, f"block{i + 1}_layer{j + 1}")
@@ -218,13 +226,13 @@ class DenseNet(nn.Module):
 
     def forward(self, x, return_features: bool = False, sample_mask=None,
                 generator=None, capture_gradcam: bool = False):
-        """x: (N, D, H, W, C), the JAX package's layout. With
+        """x: (N, *spatial, C), the JAX package's layout. With
         ``capture_gradcam``, returns ``(out, act)``: ``act`` is the last
-        dense layer's 3x3x3 convolution output, (N, growth, d, h, w), a
-        tensor of the graph that the gradients of ``out`` reach."""
+        dense layer's 3x3(x3) convolution output, (N, growth, *spatial'),
+        a tensor of the graph that the gradients of ``out`` reach."""
         captured = [] if capture_gradcam else None
         feats = self.features(
-            self.backbone(x.permute(0, 4, 1, 2, 3), sample_mask, generator,
+            self.backbone(x.movedim(-1, 1), sample_mask, generator,
                           captured),
             generator)
         out = feats if return_features else self.class_layers(feats)
@@ -233,16 +241,16 @@ class DenseNet(nn.Module):
 
 def bottleneck_shapes(model: DenseNet, batch: int, size: int = 64):
     """(block, M, Cin) of each bottleneck call (one ``bn_relu_conv1x1``) of
-    ``model``'s forward (any ``block_config``) on ``batch`` cubes of side
-    ``size``, in call order: Cin is the layer's input channels, M the
-    voxels of its block's feature map (the stem's stride 2 and the max
-    pool's, then a halving per transition)."""
+    ``model``'s forward (any ``block_config``) on ``batch`` cubes (or
+    squares, for a 2D model) of side ``size``, in call order: Cin is the
+    layer's input channels, M the voxels of its block's feature map (the
+    stem's stride 2 and the max pool's, then a halving per transition)."""
     shapes = []
     for i, num_layers in enumerate(model.block_config):
         side = size // 4 >> i
         for j in range(num_layers):
             layer = getattr(model, f"block{i + 1}_layer{j + 1}")
-            shapes.append((i + 1, batch * side ** 3,
+            shapes.append((i + 1, batch * side ** model.spatial_dims,
                            layer.fused1.kernel.shape[0]))
     return shapes
 

@@ -11,8 +11,10 @@ where it passes it; ``TPU.remat`` to the DenseNets), in
 ``TPU.compute_dtype`` (float32 or bfloat16). Images with clinical
 predictors build the multimodal model, which only ``tinycnn``,
 ``tinydensenet`` and ``densenet121`` may encode (registry.py:22,
-152-157); without images, the clinical MLP. ``spatial_dims`` other than 3
-raises ``ConfigurationError``; ROADMAP.md lists it as work to come.
+152-157); without images, the clinical MLP. ``ImageModel.spatial_dims``
+(2 or 3) reaches every family but ``r3d_18``, which the JAX registry
+builds 3D whatever it says (registry.py:106); a 2D model takes
+(N, H, W, C) inputs.
 """
 
 from __future__ import annotations
@@ -56,15 +58,10 @@ def build_image_model(cfg: Config, class_head: bool = True) -> nn.Module:
     (the multimodal model uses only its features)."""
     im = cfg.image_model
     name = im.name.lower()
-    if im.spatial_dims != 3:
-        raise ConfigurationError(
-            f"spatial_dims {im.spatial_dims} is not ported to mmnn_sts_torch "
-            "yet (ROADMAP.md Queue 1, 'spatial_dims: 2')"
-        )
     out = im.num_classes if class_head else None
-    dtype, remat = compute_dtype(cfg), cfg.tpu.remat
+    dtype, remat, sd = compute_dtype(cfg), cfg.tpu.remat, im.spatial_dims
     dense_kw = dict(in_channels=im.in_channels, out_channels=out, dtype=dtype,
-                    remat=remat)
+                    remat=remat, spatial_dims=sd)
     if name.startswith("densenet121"):
         return densenet121(feature_channels=im.feature_layers,
                            dropout_prob=im.dropout_prob, **dense_kw)
@@ -74,7 +71,8 @@ def build_image_model(cfg: Config, class_head: bool = True) -> nn.Module:
     if name.startswith("tinycnn"):
         return TinyCNN(in_channels=im.in_channels, out_channels=out,
                        feature_channels=im.feature_layers,
-                       dropout_prob=im.dropout_prob, dtype=dtype)
+                       dropout_prob=im.dropout_prob, dtype=dtype,
+                       spatial_dims=sd)
     if name.startswith("monaidensenet"):
         return DenseNet(feature_channels=None, dropout_prob=im.dropout_prob,
                         **dense_kw)
@@ -86,7 +84,8 @@ def build_image_model(cfg: Config, class_head: bool = True) -> nn.Module:
         return densenet264(**dense_kw)
     if name.startswith("seresnet50"):
         return SEResNet50(in_channels=im.in_channels,
-                          num_classes=im.num_classes, dtype=dtype)
+                          num_classes=im.num_classes, dtype=dtype,
+                          spatial_dims=sd)
     if name.startswith(("r3d_18", "r3d18")):
         return ResNet3D18(in_channels=im.in_channels,
                           num_classes=im.num_classes, dtype=dtype)

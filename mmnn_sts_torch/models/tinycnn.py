@@ -1,7 +1,7 @@
-"""TinyCNN: a five-layer 3D convolution stack (counterpart of the JAX
-package's models/tinycnn.py:19-71).
+"""TinyCNN: a five-layer 2D or 3D convolution stack (counterpart of the
+JAX package's models/tinycnn.py:19-71).
 
-Five VALID 3x3x3 convolutions with bias (64, 32, 32, 16, 16), each followed
+Five VALID 3x3(x3) convolutions with bias (64, 32, 32, 16, 16), each followed
 by BatchNorm and channel dropout, with no activation anywhere, as the JAX
 model (and the reference it mirrors) has none; then global average pool ->
 the ``features`` Linear(feature_channels) -> dropout -> ``out``. The
@@ -28,12 +28,13 @@ class TinyCNN(nn.Module):
 
     def __init__(self, in_channels: int = 1, out_channels: int | None = 3,
                  feature_channels: int = 12, dropout_prob: float = 0.5,
-                 dtype: torch.dtype | None = None):
+                 dtype: torch.dtype | None = None, spatial_dims: int = 3):
         super().__init__()
         prev = in_channels
         for i, width in enumerate(_WIDTHS):
             self.add_module(f"conv{i + 1}", conv(
-                prev, width, 3, padding="VALID", dtype=dtype, use_bias=True))
+                prev, width, 3, padding="VALID", dtype=dtype, use_bias=True,
+                spatial_dims=spatial_dims))
             self.add_module(f"bn{i + 1}", BatchNorm(width, dtype))
             prev = width
         self.channel_dropout = Dropout(dropout_prob, channels=True)
@@ -43,7 +44,7 @@ class TinyCNN(nn.Module):
             self.out = dense(feature_channels, out_channels, dtype)
 
     def backbone(self, x, sample_mask=None, generator=None, captured=None):
-        """x: (N, C, D, H, W). conv5's output goes to ``captured``, where
+        """x: (N, C, *spatial). conv5's output goes to ``captured``, where
         one is given."""
         for i in range(len(_WIDTHS)):
             x = getattr(self, f"conv{i + 1}")(x)
@@ -59,11 +60,11 @@ class TinyCNN(nn.Module):
 
     def forward(self, x, return_features: bool = False, sample_mask=None,
                 generator=None, capture_gradcam: bool = False):
-        """x: (N, D, H, W, C). With ``capture_gradcam``, returns
-        ``(out, act)``, ``act`` conv5's output (N, 16, d, h, w)."""
+        """x: (N, *spatial, C). With ``capture_gradcam``, returns
+        ``(out, act)``, ``act`` conv5's output (N, 16, *spatial')."""
         captured = [] if capture_gradcam else None
         feats = self.feature_head(
-            self.backbone(x.permute(0, 4, 1, 2, 3), sample_mask, generator,
+            self.backbone(x.movedim(-1, 1), sample_mask, generator,
                           captured),
             generator)
         out = feats if return_features else self.out(feats)

@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from ..constants import IMAGE_DATA_MEAN, IMAGE_DATA_STDDEV
+from ..parallel import mesh
 
 # Gaussian kernels: sigma <= 1.5 -> radius 6 covers 4 sigma (augment.py:57)
 _KERNEL_RADIUS = 6
@@ -270,7 +271,14 @@ def apply_train_augment(vols, params: dict, mean: float = IMAGE_DATA_MEAN,
 
 def train_augment_batch(vols, generator: torch.Generator):
     """Draw and apply the training augmentation for a batch (B, D, H, W,
-    C), each volume with its own parameters."""
-    params = draw_augment_params(vols.shape[0], generator, vols.device,
+    C), each volume with its own parameters. Where the batch is one rank's
+    rows of a microbatch sharded over the ``data`` axis
+    (``parallel/mesh.sharded``), the whole microbatch's parameters are
+    drawn, as every rank draws them, and this rank's rows applied."""
+    shard = mesh.active_shard()
+    n = vols.shape[0] * (1 if shard is None else shard.size)
+    params = draw_augment_params(n, generator, vols.device,
                                  tuple(vols.shape[1:]))
+    if shard is not None:
+        params = {k: shard.rows(v) for k, v in params.items()}
     return apply_train_augment(vols, params)

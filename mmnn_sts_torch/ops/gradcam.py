@@ -1,4 +1,4 @@
-"""Grad-CAM 3D attention maps (counterpart of the JAX package's
+"""Grad-CAM attention maps, 3D or 2D (counterpart of the JAX package's
 ops/gradcam.py:29-90).
 
 * the target is the last convolution of the image encoder (a DenseNet's
@@ -15,8 +15,9 @@ ops/gradcam.py:29-90).
   does this); the mean over channels, all in ``act``'s dtype (bfloat16
   under ``TPU.compute_dtype: bfloat16``, gradcam.py:62-84); then, widened
   to float32, the minimum shifted to 0 and the result divided by
-  max(max, 1e-12), and a trilinear resize to the input's spatial shape
-  (the JAX package normalises and resizes in ``act``'s dtype);
+  max(max, 1e-12), and a linear resize (trilinear, or bilinear for a 2D
+  model) to the input's spatial shape (the JAX package normalises and
+  resizes in ``act``'s dtype);
 * batch size 1 only.
 
 The forward is one eval-mode call with autograd on, so every DenseNet
@@ -31,10 +32,12 @@ from torch.nn import functional as F
 
 
 def resize_trilinear(volume, size):
-    """(d, h, w) -> ``size`` by trilinear interpolation with half-pixel
-    centres (``jax.image.resize(method="trilinear")`` when upsampling)."""
-    return F.interpolate(volume[None, None], size=tuple(size),
-                         mode="trilinear", align_corners=False)[0, 0]
+    """(d, h, w) or (h, w) -> ``size`` by n-linear interpolation with
+    half-pixel centres (``jax.image.resize(method="trilinear")``, which is
+    linear in any number of dimensions, when upsampling)."""
+    mode = {2: "bilinear", 3: "trilinear"}[volume.dim()]
+    return F.interpolate(volume[None, None], size=tuple(size), mode=mode,
+                         align_corners=False)[0, 0]
 
 
 def attention_maps(model, inputs, num_classes: int, blend: bool = False):
@@ -43,11 +46,12 @@ def attention_maps(model, inputs, num_classes: int, blend: bool = False):
     Args:
       model: an eval-mode model with a ``capture_gradcam`` path.
       inputs: what the model takes, batch size 1 (a dict with ``"image"``
-        (1, D, H, W, C), or the image tensor itself), already transformed.
+        (1, *spatial, C), or the image tensor itself), already
+        transformed.
       num_classes: C.
       blend: whether the output is the (K, N, C) head stack.
 
-    Returns (C, D, H, W) float32 maps on the input's device.
+    Returns (C, *spatial) float32 maps on the input's device.
     """
     image = inputs["image"] if isinstance(inputs, dict) else inputs
     if image.shape[0] != 1:
@@ -64,10 +68,11 @@ def attention_maps(model, inputs, num_classes: int, blend: bool = False):
             (grads,) = torch.autograd.grad(
                 logit, act, retain_graph=cls < num_classes - 1)
             with torch.no_grad():
-                # act: (1, channels, d, h, w)
-                pooled = grads.mean(dim=(0, 2, 3, 4))
-                heatmap = (act * pooled.view(1, -1, 1, 1, 1)).mean(1)[0] \
-                    .float()
+                # act: (1, channels, *spatial')
+                spatial_axes = tuple(range(2, act.dim()))
+                pooled = grads.mean(dim=(0,) + spatial_axes)
+                heatmap = (act * pooled.view((1, -1) + (1,) * len(
+                    spatial_axes))).mean(1)[0].float()
                 heatmap = heatmap - heatmap.min()
                 heatmap = heatmap / torch.clamp(heatmap.max(), min=1e-12)
                 maps.append(resize_trilinear(heatmap, spatial))

@@ -26,6 +26,7 @@ from .data.split import stratified_split
 from .data.tabular import ClinicalArrays, load_clinical_arrays
 from .exceptions import ConfigurationError
 from .infer.export import resolve_device
+from .parallel.mesh import is_writer
 from .utils.store import load_uids_any
 
 
@@ -140,8 +141,8 @@ def standardize_bundle(bundle: CohortBundle, train_uids) -> CohortBundle:
 
 def resolve_splits(cfg: Config, flags: TaskFlags, bundle: CohortBundle, seed: int):
     """(train_uids, val_uids, test_uids): a fresh stratified split with
-    --split (its txt files written to the working directory), else the
-    configured UID files."""
+    --split (its txt files written to the working directory, by rank 0
+    alone under a mesh of ranks), else the configured UID files."""
     pp = cfg.preprocessing
     if flags.split:
         return stratified_split(
@@ -151,6 +152,7 @@ def resolve_splits(cfg: Config, flags: TaskFlags, bundle: CohortBundle, seed: in
             targets_binary=cfg.clinical_model.targets_binary,
             uid_col=pp.uid,
             output_dir=".",
+            write_files=is_writer(),
         )
     train = load_uids_any(pp.train_uid_location)
     val = load_uids_any(pp.val_uid_location)

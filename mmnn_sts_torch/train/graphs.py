@@ -32,18 +32,32 @@ meet every shape there first. The second run captures (nothing executes)
 and replays; later runs replay. The state's generator is registered with
 every graph, so each replay draws fresh bits in eager order. A capture
 that fails raises ``GraphCaptureError`` naming the operation; nothing
-falls back to eager. On the CPU, which only tests ask for, every run calls
-the bound body eagerly over the same buffers.
+falls back to eager. Python's cyclic collector is off during a capture: a
+finished run's state is a reference cycle that holds its graphs, and a
+graph destroyed while another is captured invalidates that capture (CUDA:
+"operation not permitted when stream is capturing"), which then fails at
+whatever operation the capture reaches next. On the CPU, which only tests
+ask for, every run calls the bound body eagerly over the same buffers.
 
 The fused bottleneck kernel's wrapper counts its launches when the body
 calls it: at the warm-up and at the capture, not at a replay.
 ``launches_per_capture`` keeps the count of the capture, ``replays`` the
 replays.
+
+Under a mesh of ranks (``parallel/mesh.py``) the step's collectives (the
+BatchNorm sums, the output gather, the gradient sum) are captured inside
+the graphs over NCCL, whose communicator is built before the first
+capture (``mesh.maybe_initialize_distributed``). A gloo collective stages
+CUDA tensors through the host, which no capture can hold: over gloo on a
+card the graphs raise ``ConfigurationError`` at their first use, and
+nothing runs eagerly in their place.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import math
 import os
 import time
@@ -51,6 +65,7 @@ import traceback
 
 import torch
 
+from ..exceptions import ConfigurationError
 from ..ops import fused_dense
 
 
@@ -72,6 +87,19 @@ def _failed_op(err: BaseException) -> str:
     f = (ours or frames)[-1]
     return (f"{f.filename}:{f.lineno} in {f.name}: {f.line!r} "
             f"({type(root).__name__}: {root})")
+
+
+@contextlib.contextmanager
+def no_collection():
+    """Python's cyclic collector off within, and as it was on exit: no dead
+    graph is destroyed by a collection that falls inside a capture."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 class BoundBody:
@@ -143,8 +171,8 @@ class BoundBody:
             # thread_local: work of other threads (the best-model writer's
             # device-to-host copies on its own stream) may run meanwhile;
             # a host sync in this thread still fails the capture
-            with torch.cuda.graph(graph, stream=stream,
-                                  capture_error_mode="thread_local"):
+            with no_collection(), torch.cuda.graph(
+                    graph, stream=stream, capture_error_mode="thread_local"):
                 outputs = self.body(warm=False)
         except Exception as err:  # noqa: BLE001 - raised again, named
             raise GraphCaptureError(
@@ -258,9 +286,23 @@ class EpochSteps:
         return {"loss": self.loss, "preds": self.preds}
 
 
+def _check_capturable(state):
+    """Raise where the step's collectives cannot be captured: gloo ranks on
+    a card."""
+    ranks = state.mesh
+    if (state.device.type == "cuda" and ranks is not None
+            and ranks.backend == "gloo"):
+        raise ConfigurationError(
+            "TPU.fused_epoch captures each step as a CUDA graph, and a "
+            "graph cannot hold a gloo collective (gloo stages CUDA tensors "
+            "through the host); run one rank per card, over NCCL, or turn "
+            "TPU.fused_epoch off")
+
+
 def epoch_steps(state, key, ds, names, shape, steps, body) -> EpochSteps:
     """The cached ``EpochSteps`` of ``key`` on ``state``, made at first
     use."""
+    _check_capturable(state)
     if key not in state.graphs:
         state.graphs[key] = EpochSteps(state, ds, names, shape, steps, body)
     return state.graphs[key]
@@ -269,6 +311,7 @@ def epoch_steps(state, key, ds, names, shape, steps, body) -> EpochSteps:
 def forward_graph(state, key, forward, reads) -> BoundBody:
     """The cached bound validation forward of ``key``: ``forward(blend_state)``
     returns a dict of tensors; ``reads()`` lists the split's tensors."""
+    _check_capturable(state)
     if key not in state.graphs:
         def bind():
             blend_state = dataclasses.replace(state.blend)

@@ -46,6 +46,12 @@ Validation runs every ``val_interval`` epochs; a blend update in an epoch
 without validation first recomputes the validation predictions against the
 current weights (loop.py:146-153, 353-362). The blend update is copied into
 the state's tensors in place, since a captured graph reads them.
+
+Under a mesh of ranks (``state.mesh``) every rank runs the same loop on
+the same global batches, and the steps shard them (``train/steps.py``):
+the losses, predictions, C-indices, F1s, blend updates and best-model
+choices are the same on every rank, and only rank 0 writes files
+(``metrics.jsonl``, the ``.npz`` files, checkpoints, curves and CSVs).
 """
 
 from __future__ import annotations
@@ -63,6 +69,7 @@ from ..data.streaming import HostDataset, prefetched_epoch
 from ..ops import blending
 from ..ops.losses import pos_weight_from_frequencies
 from ..ops.metrics import c_indices_per_class, thresholded_f1s
+from ..parallel import mesh
 from ..utils.logging import MetricsWriter, get_logger
 from ..utils.plotting import (
     LossTracker,
@@ -114,6 +121,24 @@ class TrainResult:
     best_metric: float
     best_epoch: int
     history: dict = field(default_factory=dict)
+
+
+def _writers(cfg: LoopConfig, writes: bool):
+    """This rank's (metrics writer, best-model saver, checkpoint saver), or
+    None each where the rank does not write (every rank but rank 0); the
+    checkpoint saver is None without a checkpoint directory too."""
+    if not writes:
+        return None, None, None
+    return (MetricsWriter(os.path.join(cfg.output_dir, cfg.metrics_path)),
+            ckpt_lib.AsyncNpzSaver(cfg.npz_layout),
+            ckpt_lib.CheckpointManager(cfg.checkpoint_dir)
+            if cfg.checkpoint_dir else None)
+
+
+def _resumed_metrics(cfg: LoopConfig) -> dict:
+    """The newest checkpoint's metrics (each rank reads them)."""
+    reader = ckpt_lib.CheckpointManager(cfg.checkpoint_dir)
+    return reader.metrics(reader.latest_step())
 
 
 def _flatten_epoch_preds(preds: np.ndarray, blend: bool) -> np.ndarray:
@@ -180,19 +205,16 @@ def train_survival(
         train_ds.num_samples, cfg.batch_size, accum, seed=cfg.seed,
         two_level=True,
     )
-    metrics = MetricsWriter(os.path.join(cfg.output_dir, cfg.metrics_path))
-    manager = (
-        ckpt_lib.CheckpointManager(cfg.checkpoint_dir) if cfg.checkpoint_dir else None
-    )
-    npz_saver = ckpt_lib.AsyncNpzSaver(cfg.npz_layout)
+    writes = mesh.is_writer(state.mesh)
+    metrics, npz_saver, saver = _writers(cfg, writes)
     device = train_ds.device
 
     best_loss, best_epoch, best_c_indices = np.inf, -1, None
     history = {"train_loss": [], "val_loss": [], "train_c": [], "val_c": [],
                "blend": [state.blend.weights.cpu().tolist()]}
     first_epoch = int(state.epoch)
-    if manager is not None and first_epoch:
-        done = manager.metrics(manager.latest_step())
+    if cfg.checkpoint_dir and first_epoch:
+        done = _resumed_metrics(cfg)
         best_loss = done.get("best_loss", np.inf)
         best_epoch = done.get("best_epoch", -1)
         best_c_indices = done.get("best_c_indices")
@@ -223,7 +245,7 @@ def train_survival(
         logger.info("-" * 10)
         logger.info(f"epoch {epoch + 1}/{cfg.epochs}")
         profiler = None
-        if cfg.profile_dir and epoch == 1:
+        if cfg.profile_dir and epoch == 1 and writes:
             profiler = torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU] + (
                 [torch.profiler.ProfilerActivity.CUDA]
@@ -308,7 +330,7 @@ def train_survival(
                 best_loss = selection_loss
                 best_epoch = epoch + 1
                 best_c_indices = c_indices
-                if cfg.save_params_name:
+                if cfg.save_params_name and writes:
                     npz_saver.submit(
                         os.path.join(cfg.output_dir, cfg.save_params_name),
                         state.model)
@@ -318,17 +340,18 @@ def train_survival(
                 f"{selection_loss:.4f} best loss: {best_loss:.4f} at epoch: "
                 f"{best_epoch} best c_indices: {best_c_indices}"
             )
-            metrics.write(
-                kind="survival_epoch",
-                epoch=epoch + 1,
-                train_loss=epoch_loss,
-                val_loss=val_loss,
-                train_c=train_cs[-1],
-                val_c=mean_c,
-                selection_loss=selection_loss,
-                epoch_seconds=epoch_dt,
-                samples_per_sec=epoch_samples / max(epoch_dt, 1e-9),
-            )
+            if writes:
+                metrics.write(
+                    kind="survival_epoch",
+                    epoch=epoch + 1,
+                    train_loss=epoch_loss,
+                    val_loss=val_loss,
+                    train_c=train_cs[-1],
+                    val_c=mean_c,
+                    selection_loss=selection_loss,
+                    epoch_seconds=epoch_dt,
+                    samples_per_sec=epoch_samples / max(epoch_dt, 1e-9),
+                )
 
         if cfg.blend and (epoch + 1) % cfg.blend_update_interval == 0:
             if val_preds is None or val_preds_epoch != epoch:
@@ -352,19 +375,20 @@ def train_survival(
             logger.info(f"new weights : {blend_history[-1]}")
 
         state.epoch += 1
-        if manager is not None:
-            manager.save(epoch + 1, state, {
+        if saver is not None:
+            saver.save(epoch + 1, state, {
                 "selection_metric": (-selection_loss if do_val
                                      else float("-inf")),
                 "best_loss": float(best_loss), "best_epoch": best_epoch,
                 "best_c_indices": best_c_indices, "history": history})
 
-    if cfg.blend:
-        save_blend_history(blend_history, cfg.output_dir)
-    save_loss_curves(train_losses, val_losses, cfg.output_dir)
-    save_c_score_curves(train_cs, val_cs, cfg.output_dir)
-    npz_saver.close()
-    metrics.close()
+    if writes:
+        if cfg.blend:
+            save_blend_history(blend_history, cfg.output_dir)
+        save_loss_curves(train_losses, val_losses, cfg.output_dir)
+        save_c_score_curves(train_cs, val_cs, cfg.output_dir)
+        npz_saver.close()
+        metrics.close()
     return TrainResult(
         state=state,
         best_metric=best_loss,
@@ -393,19 +417,16 @@ def train_classification(
         device)
     batcher = EpochBatcher(train_ds.num_samples, cfg.batch_size, 1,
                            seed=cfg.seed)
-    metrics = MetricsWriter(os.path.join(cfg.output_dir, cfg.metrics_path))
-    manager = (
-        ckpt_lib.CheckpointManager(cfg.checkpoint_dir) if cfg.checkpoint_dir else None
-    )
-    npz_saver = ckpt_lib.AsyncNpzSaver(cfg.npz_layout)
+    writes = mesh.is_writer(state.mesh)
+    metrics, npz_saver, saver = _writers(cfg, writes)
 
     best_metric, best_epoch, best_f1s = -1.0, -1, None
     history = {"train_loss": [], "val_loss": [], "train_f1": [], "val_f1": [],
                "blend": [state.blend.weights.cpu().tolist()],
                "tracker": LossTracker().curves()}
     first_epoch = int(state.epoch)
-    if manager is not None and first_epoch:
-        done = manager.metrics(manager.latest_step())
+    if cfg.checkpoint_dir and first_epoch:
+        done = _resumed_metrics(cfg)
         best_metric = done.get("best_metric", best_metric)
         best_epoch = done.get("best_epoch", best_epoch)
         best_f1s = done.get("best_f1s")
@@ -497,7 +518,7 @@ def train_classification(
             val_f1s.append(mean_f1)
             if mean_f1 > best_metric:
                 best_metric, best_f1s, best_epoch = mean_f1, f1s, epoch + 1
-                if cfg.save_params_name:
+                if cfg.save_params_name and writes:
                     npz_saver.submit(
                         os.path.join(cfg.output_dir, cfg.save_params_name),
                         state.model)
@@ -506,16 +527,17 @@ def train_classification(
                 f"current epoch: {epoch + 1} current f1: {mean_f1:.4f}"
                 f" best f1: {best_metric:.4f} at epoch: {best_epoch}"
             )
-            metrics.write(
-                kind="classification_epoch",
-                epoch=epoch + 1,
-                train_loss=epoch_loss,
-                val_loss=val_loss,
-                train_f1=train_f1s[-1],
-                val_f1=mean_f1,
-                epoch_seconds=epoch_dt,
-                samples_per_sec=train_ds.num_samples / max(epoch_dt, 1e-9),
-            )
+            if writes:
+                metrics.write(
+                    kind="classification_epoch",
+                    epoch=epoch + 1,
+                    train_loss=epoch_loss,
+                    val_loss=val_loss,
+                    train_f1=train_f1s[-1],
+                    val_f1=mean_f1,
+                    epoch_seconds=epoch_dt,
+                    samples_per_sec=train_ds.num_samples / max(epoch_dt, 1e-9),
+                )
 
         if cfg.blend and (epoch + 1) % cfg.blend_update_interval == 0:
             # raw logits for both, as the JAX loop (the reference feeds
@@ -538,23 +560,24 @@ def train_classification(
             logger.info(f"new weights : {blend_history[-1]}")
 
         state.epoch += 1
-        if manager is not None:
-            manager.save(epoch + 1, state, {
+        if saver is not None:
+            saver.save(epoch + 1, state, {
                 "selection_metric": mean_f1 if np.isfinite(mean_f1) else -1.0,
                 "best_metric": best_metric, "best_epoch": best_epoch,
                 "best_f1s": best_f1s, "history": history})
 
-    tracker.save_plots(cfg.output_dir)
-    if cfg.blend:
-        save_blend_history(blend_history, cfg.output_dir)
-    save_loss_curves(train_losses, val_losses, cfg.output_dir)
-    save_f1_curves(train_f1s, val_f1s, cfg.output_dir)
-    if cfg.save_params_name:
-        ckpt_lib.save_params_npz(
-            os.path.join(cfg.output_dir, "final_" + cfg.save_params_name),
-            state.model, cfg.npz_layout)
-    npz_saver.close()
-    metrics.close()
+    if writes:
+        tracker.save_plots(cfg.output_dir)
+        if cfg.blend:
+            save_blend_history(blend_history, cfg.output_dir)
+        save_loss_curves(train_losses, val_losses, cfg.output_dir)
+        save_f1_curves(train_f1s, val_f1s, cfg.output_dir)
+        if cfg.save_params_name:
+            ckpt_lib.save_params_npz(
+                os.path.join(cfg.output_dir, "final_" + cfg.save_params_name),
+                state.model, cfg.npz_layout)
+        npz_saver.close()
+        metrics.close()
     return TrainResult(
         state=state,
         best_metric=best_metric,

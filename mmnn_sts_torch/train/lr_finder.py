@@ -13,7 +13,9 @@ is wrap-padded and, as in the JAX package, not masked. The loss is smoothed
 (``smoothing``, an exponential moving average), lr_finder.png is drawn in
 ``output_dir`` where matplotlib is installed, and the learning rate of the
 least smoothed loss is logged. The sweep ends at rates where the loss is
-inf or NaN; nothing here asks for finite values.
+inf or NaN; nothing here asks for finite values. Under a ``mesh`` of ranks
+each step shards its microbatch over the ``data`` axis
+(``train/steps.py``), every rank logs the same sweep and rank 0 draws it.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 
 from ..data.loader import EpochBatcher, gather_superbatch
 from ..models import build_model
+from ..parallel.mesh import is_writer
 from ..pipeline import make_split_dataset
 from ..utils.logging import get_logger
 from ..utils.plotting import save_lr_finder_curve
@@ -49,7 +52,7 @@ def exponential_schedule(lr_start: float, lr_end: float, num_iters: int):
 
 def find_lr(cfg, flags, bundle, device, lr_start: float = 1e-7,
             lr_end: float = 100.0, num_iters: int = 100,
-            smoothing: float = 0.05, output_dir: str = "."):
+            smoothing: float = 0.05, output_dir: str = ".", mesh=None):
     """Run the sweep on ``device``; returns ``(lrs, smoothed losses)``,
     one entry per step."""
     hp = cfg.hyperparameters
@@ -66,7 +69,8 @@ def find_lr(cfg, flags, bundle, device, lr_start: float = 1e-7,
     optimizer = torch.optim.SGD(model.parameters(), lr=schedule(0),
                                 momentum=hp.momentum, nesterov=True,
                                 weight_decay=hp.weight_decay)
-    state = create_train_state(model, optimizer, schedule, seed=hp.seed)
+    state = create_train_state(model, optimizer, schedule, seed=hp.seed,
+                               mesh=mesh)
 
     batcher = EpochBatcher(train_ds.num_samples, hp.train_batch_size, 1,
                            seed=hp.seed)
@@ -99,7 +103,8 @@ def find_lr(cfg, flags, bundle, device, lr_start: float = 1e-7,
             losses.append(avg_loss)
         epoch += 1
 
-    save_lr_finder_curve(lrs, losses, output_dir)
+    if is_writer(state.mesh):
+        save_lr_finder_curve(lrs, losses, output_dir)
     best = lrs[int(np.nanargmin(losses))]
     get_logger().info(f"lr_finder: min-loss lr = {best:.2e}")
     return lrs, losses

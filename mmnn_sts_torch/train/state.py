@@ -52,6 +52,8 @@ class TrainState:
     step_t: torch.Tensor | None = None
     # train/graphs' bound step bodies (EpochSteps, BoundBody), by key
     graphs: dict = field(default_factory=dict, repr=False)
+    # the ranks' mesh (parallel/mesh.Mesh); None: one process
+    mesh: object = None
 
     @property
     def device(self) -> torch.device:
@@ -127,10 +129,12 @@ class TrainState:
 
 def create_train_state(model: nn.Module, optimizer: torch.optim.Optimizer,
                        schedule: Schedule, seed: int = 42,
-                       num_blend_heads: int = 3) -> TrainState:
+                       num_blend_heads: int = 3, mesh=None) -> TrainState:
     """A fresh state around ``model`` (its parameters already initialised
     or loaded) and ``optimizer`` over them, with uniform blend weights and
-    a dropout generator seeded with ``seed`` on the model's device."""
+    a dropout generator seeded with ``seed`` on the model's device. Under
+    a ``mesh`` of ranks every rank builds the same state from the same
+    seed; the steps shard over its ``data`` axis."""
     device = next(model.parameters()).device
     return TrainState(
         model=model,
@@ -138,4 +142,5 @@ def create_train_state(model: nn.Module, optimizer: torch.optim.Optimizer,
         schedule=schedule,
         blend=blend_init(num_blend_heads, device),
         generator=torch.Generator(device=device).manual_seed(seed),
+        mesh=mesh,
     )

@@ -24,6 +24,17 @@ adds the validation forward after the last optimizer step. On a CUDA
 device each step is one replay of a CUDA graph (``train/graphs.py``): one
 graph for the full step, one for the masked tail, one for the validation
 forward. On the CPU the same bodies run eagerly over the same buffers.
+
+Under a ``data`` mesh (``state.mesh``, ``parallel/mesh.py``) every rank
+passes the same global batch and each step takes this rank's contiguous
+rows of each microbatch (``mesh.data_shard``: only where the axis divides
+the microbatch, as the JAX loop's ``_data_axis``), runs them ``with
+mesh.sharded(shard)`` (BatchNorm statistics over the whole microbatch,
+the whole microbatch's random draws), gathers the output rows before the
+loss, so every rank holds the global loss and predictions, and sums the
+gradients over the ranks before the one optimizer update. The eval steps
+forward this rank's rows of the split (a padded last block) and gather
+the predictions in order.
 """
 
 from __future__ import annotations
@@ -35,6 +46,7 @@ from ..ops.augment import eval_transform_batch, train_augment_batch
 from ..ops.blending import blended_class_loss, blended_surv_loss
 from ..ops.cox import multi_cox_loss
 from ..ops.losses import bce_with_logits
+from ..parallel import mesh
 from .graphs import epoch_steps, forward_graph
 from .state import TrainState
 
@@ -62,6 +74,50 @@ def _microbatch(inputs, i: int):
     return inputs[i]
 
 
+def _rows(shard, inputs):
+    """This rank's rows of a batch's inputs (all of them without a
+    shard)."""
+    if shard is None:
+        return inputs
+    if isinstance(inputs, dict):
+        return {k: shard.rows(v) for k, v in inputs.items()}
+    return shard.rows(inputs)
+
+
+def _gathered(shard, out, blend):
+    """The whole batch's output from each rank's rows (the batch axis is 1
+    under blending's (K, B, C) head stack)."""
+    return out if shard is None else shard.gather(out, 1 if blend else 0)
+
+
+def _num_rows(inputs) -> int:
+    return next(iter(inputs.values())).shape[0] if isinstance(
+        inputs, dict) else inputs.shape[0]
+
+
+def _eval_forward(model, ranks, inputs, blend):
+    """The eval forward of a split's rows, sharded over the ``data`` axis
+    of the mesh ``ranks`` where it has one: each rank forwards its block of
+    the rows (the last row repeated to make whole blocks; eval rows do not
+    interact) and the predictions are gathered in order."""
+    shard = mesh.data_shard(ranks)
+    if shard is None:
+        return model(_transform_inputs(inputs))
+    n = _num_rows(inputs)
+    whole = -(-n // shard.size) * shard.size
+
+    def take(x):
+        if whole > n:
+            idx = torch.arange(whole, device=x.device).clamp_(max=n - 1)
+            x = x.index_select(0, idx)
+        return shard.rows(x)
+
+    local = ({k: take(v) for k, v in inputs.items()}
+             if isinstance(inputs, dict) else take(inputs))
+    return _gathered(shard, model(_transform_inputs(local)), blend).narrow(
+        1 if blend else 0, 0, n)
+
+
 def _survival_loss(blend_state, out, events, durations, blend, ties,
                    mask=None):
     """The loss to train on and the selection loss (the multimodal head's
@@ -80,18 +136,24 @@ def _superstep_body(state, blend_state, inputs, events, durations,
     counter. ``state.step`` is the caller's."""
     model = state.model.train()
     state.zero_gradients()
+    shard = mesh.data_shard(state.mesh, events.shape[1])
     loss_sum = torch.zeros((), device=events.device)
     outs = []
     for i in range(events.shape[0]):
         mb_mask = None if mask is None else mask[i]
-        mb_inputs = _transform_inputs(_microbatch(inputs, i),
-                                      generator if augment else None)
-        out = model(mb_inputs, sample_mask=mb_mask, generator=generator)
-        loss, _ = _survival_loss(blend_state, out, events[i], durations[i],
-                                 blend, ties, mb_mask)
-        loss.backward()
+        with mesh.sharded(shard):
+            mb_inputs = _transform_inputs(_rows(shard, _microbatch(inputs, i)),
+                                          generator if augment else None)
+            out = _gathered(shard, model(
+                mb_inputs, sample_mask=_rows(shard, mb_mask),
+                generator=generator), blend)
+            loss, _ = _survival_loss(blend_state, out, events[i],
+                                     durations[i], blend, ties, mb_mask)
+            loss.backward()
         loss_sum += loss.detach()
         outs.append(out.detach())
+    if shard is not None:
+        shard.sum_gradients(state.gradients())
     state.device_update()
     return {"loss": loss_sum, "preds": torch.stack(outs)}
 
@@ -135,14 +197,14 @@ def survival_eval_step(state: TrainState, inputs, events, durations,
     """Validation forward on leaves (B, ...): eval mode (running BatchNorm
     statistics, no dropout) after the eval transform. Returns ``{"loss",
     "selection_loss", "preds"}`` (steps.py:324-334)."""
-    return _survival_eval_body(state.model, state.blend, inputs, events,
-                               durations, blend, ties)
+    return _survival_eval_body(state.model, state.mesh, state.blend, inputs,
+                               events, durations, blend, ties)
 
 
 @torch.no_grad()
-def _survival_eval_body(model, blend_state, inputs, events, durations,
-                        blend, ties):
-    out = model.eval()(_transform_inputs(inputs))
+def _survival_eval_body(model, ranks, blend_state, inputs, events,
+                        durations, blend, ties):
+    out = _eval_forward(model.eval(), ranks, inputs, blend)
     loss, selection = _survival_loss(blend_state, out, events, durations,
                                      blend, ties)
     return {"loss": loss, "selection_loss": selection, "preds": out}
@@ -163,11 +225,17 @@ def _classification_body(state, blend_state, inputs, labels, pos_weight,
     generator = state.generator
     model = state.model.train()
     state.zero_gradients()
-    out = model(_transform_inputs(inputs, generator if augment else None),
-                sample_mask=mask, generator=generator)
-    loss = _classification_loss(blend_state, out, labels, pos_weight, blend,
-                                mask)
-    loss.backward()
+    shard = mesh.data_shard(state.mesh, labels.shape[0])
+    with mesh.sharded(shard):
+        local = _transform_inputs(_rows(shard, inputs),
+                                  generator if augment else None)
+        out = _gathered(shard, model(local, sample_mask=_rows(shard, mask),
+                                     generator=generator), blend)
+        loss = _classification_loss(blend_state, out, labels, pos_weight,
+                                    blend, mask)
+        loss.backward()
+    if shard is not None:
+        shard.sum_gradients(state.gradients())
     state.device_update()
     return {"loss": loss.detach(), "preds": out.detach()}
 
@@ -200,14 +268,14 @@ def classification_eval_step(state: TrainState, inputs, labels, pos_weight,
     transform. Returns ``{"loss", "preds", "elementwise"}``, the last the
     (B, C) unreduced BCE of the multimodal head, which the ``LossTracker``
     reads."""
-    return _classification_eval_body(state.model, state.blend, inputs,
-                                     labels, pos_weight, blend)
+    return _classification_eval_body(state.model, state.mesh, state.blend,
+                                     inputs, labels, pos_weight, blend)
 
 
 @torch.no_grad()
-def _classification_eval_body(model, blend_state, inputs, labels,
+def _classification_eval_body(model, ranks, blend_state, inputs, labels,
                               pos_weight, blend):
-    out = model.eval()(_transform_inputs(inputs))
+    out = _eval_forward(model.eval(), ranks, inputs, blend)
     head = out[0] if blend else out
     elementwise = bce_with_logits(head, labels, pos_weight, reduction="none")
     loss = (_classification_loss(blend_state, out, labels, pos_weight, blend)
@@ -281,7 +349,7 @@ def survival_train_epoch(
     if with_val:
         def val(blend_state):
             return _survival_eval_body(
-                state.model, blend_state, val_ds.model_inputs(),
+                state.model, state.mesh, blend_state, val_ds.model_inputs(),
                 val_ds.events, val_ds.durations, blend, ties)
 
         ev = _forward(state, ("survival_val", id(val_ds), blend, ties), val,
@@ -318,7 +386,7 @@ def classification_train_epoch(
     if with_val:
         def val(blend_state):
             return _classification_eval_body(
-                state.model, blend_state, val_ds.model_inputs(),
+                state.model, state.mesh, blend_state, val_ds.model_inputs(),
                 val_ds.labels, pos_weight, blend)
 
         ev = _forward(state, ("classification_val", id(val_ds),

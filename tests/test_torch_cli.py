@@ -36,7 +36,7 @@ import torch
 
 from fixtures import make_full_cohort
 from mmnn_sts_torch.cli import main as port_main
-from test_torch_data import run_blocked
+from test_torch_data import BLOCK_PRELUDE, run_blocked
 
 torch.set_num_threads(1)
 
@@ -230,11 +230,21 @@ def test_resume_carries_the_step_on(runs):
 
 
 @pytest.mark.parametrize("flag", ["--segmentation"])
-def test_unported_flags_raise(flag, runs):
-    task = [] if flag == "--segmentation" else ["--survival"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, '"):
-        port_main([flag, "--preop", "--config", str(runs["config"]),
-                   "--device", "cpu"] + task)
+def test_unported_flags_raise(flag):
+    """The port's twin of the JAX package's test_cli_segmentation_raises
+    (tests/test_streaming.py:72-77): both CLIs refuse the flag before they
+    read the config, the port naming its own cohort builder."""
+    from mmnn_sts_tpu.cli import main as jax_main
+
+    argv = [flag, "--config", "/nonexistent.yaml"]
+    with pytest.raises(NotImplementedError, match="segmentation") as jax_err:
+        jax_main(argv)
+    with pytest.raises(NotImplementedError, match="segmentation") as err:
+        port_main(argv)
+    assert str(err.value) == str(jax_err.value).replace(
+        "mmnn_sts_tpu.", "mmnn_sts_torch.")
+    assert "mmnn_sts_torch.data.images.build_segmentation_cohort" in str(
+        err.value)
 
 
 def test_without_cuda_the_cli_raises(runs, tmp_path):
@@ -289,3 +299,52 @@ def test_cli_runs_without_pandas_yaml_or_jax(runs, tmp_path):
     assert sorted(os.listdir(out)) == ["best_surv_model.npz",
                                        "gblend_weights_history.csv",
                                        "metrics.jsonl"]
+
+
+def test_two_ranks_under_torch_distributed_run(runs, tmp_path):
+    """``python -m torch.distributed.run --nproc_per_node 2`` runs the CLI
+    on the CPU (two gloo ranks of the ``data`` axis), each rank with
+    pandas, matplotlib, yaml and jax blocked: rc 0, both ranks log gloo,
+    rank 0 alone writes (one metrics row an epoch, the uid files as the
+    one-process run writes them), and the losses lie within 2e-2 of the
+    one-process run's (the ranks sum the BatchNorm statistics and the
+    gradients in another order; one-ulp changes move the survival loop's
+    losses by up to 1.3e-2 over 3 epochs, ROADMAP.md Queue 3)."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    script = tmp_path / "rank.py"
+    script.write_text(
+        BLOCK_PRELUDE + "import runpy\n"
+        "sys.argv = ['mmnn_sts_torch'] + sys.argv[1:]\n"
+        "runpy.run_module('mmnn_sts_torch', run_name='__main__')\n"
+        "bad = sorted(k for k in sys.modules if sys.modules[k] is not None\n"
+        "             and k.split('.')[0] in ('jax', 'flax', 'pandas',\n"
+        "                                     'matplotlib', 'yaml'))\n"
+        "assert not bad, bad\n")
+    res = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+         "--nproc_per_node", "2", "--master_addr", "localhost",
+         "--master_port", str(port), str(script)] + runs["common"] + [
+            "--output_path", "out", "--device", "cpu"],
+        cwd=tmp_path, capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": os.pathsep.join(
+            [REPO, os.path.join(REPO, "tests")])})
+    assert res.returncode == 0, (res.stdout[-3000:], res.stderr[-3000:])
+    logged = sorted(line for line in res.stdout.splitlines()
+                    if line.startswith("distributed:"))
+    assert logged == [f"distributed: rank {r} of 2, backend gloo, device "
+                      "cpu" for r in range(2)]
+    # the one-process run's first two rows (a later test resumes it)
+    got, want = _rows(tmp_path / "out"), _rows(runs["port"] / "out")[:2]
+    assert [r["epoch"] for r in got] == [r["epoch"] for r in want] == [1, 2]
+    for name in ("train_uids.txt", "val_uids.txt", "test_uids.txt"):
+        assert (tmp_path / name).read_text() == \
+            (runs["port"] / name).read_text()
+    worst = max(abs(g[key] - w[key]) / max(1.0, abs(w[key]))
+                for g, w in zip(got, want)
+                for key in ("train_loss", "val_loss", "selection_loss"))
+    print(f"two ranks vs one process: losses within {worst:.2e}")
+    assert worst <= 2e-2

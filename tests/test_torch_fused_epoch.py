@@ -36,6 +36,7 @@ On the card, tests/test_torch_fused_epoch_cuda.py holds the graphs
 against eager.
 """
 
+import gc
 import json
 
 import jax
@@ -391,6 +392,23 @@ def test_blend_update_recomputes_stale_val_preds(flat, tmp_path, monkeypatch,
     assert result.state.blend.has_history
     assert len(result.history["val_loss"]) == 1
     assert len(result.history["train_loss"]) == EPOCHS
+
+
+@pytest.mark.parametrize("enabled", [True, False])
+def test_no_collection_turns_the_collector_off_and_back(enabled):
+    """``graphs.no_collection`` (around each capture): the cyclic collector
+    is off within, and as it was before afterwards, an error included."""
+    before = gc.isenabled()
+    (gc.enable if enabled else gc.disable)()
+    try:
+        with graphs.no_collection():
+            assert not gc.isenabled()
+        assert gc.isenabled() == enabled
+        with pytest.raises(ValueError), graphs.no_collection():
+            raise ValueError
+        assert gc.isenabled() == enabled
+    finally:
+        (gc.enable if before else gc.disable)()
 
 
 # --- the update ------------------------------------------------------------

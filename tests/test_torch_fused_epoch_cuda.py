@@ -12,6 +12,8 @@ it imports no JAX, so it also runs where JAX is not installed: ``python -m
 pytest tests/test_torch_fused_epoch_cuda.py -m cuda --noconftest``.
 """
 
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -166,6 +168,60 @@ def test_cuda_capture_raises_naming_the_op(monkeypatch):
         survival_train_epoch(state, train, idx, blend=False)
     (epoch,) = state.graphs.values()
     assert epoch.graphs["step"].graph is None
+
+
+@pytest.mark.cuda
+def test_cuda_capture_outlives_a_dead_graph(monkeypatch):
+    """A finished run's state (a reference cycle that holds its captured
+    graphs) made unreachable inside the next state's capture, with the
+    collector set to run at every allocation: no collection starts during
+    the capture (one could destroy the dead graphs, and a graph destroyed
+    during a capture invalidates the capture), the capture succeeds, and
+    the dead state goes at the next collection."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA graphs run only there)")
+    train, idx = _split(5, N), _rows(0)[0]
+    dead = [_state()]
+    dead[0].ensure_rates(4)
+    for _ in range(2):  # the warm-up, then the capture
+        survival_train_epoch(dead[0], train, idx, blend=False)
+    (epoch,) = dead[0].graphs.values()
+    assert epoch.graphs["step"].graph is not None
+    real = steps.multi_cox_loss
+
+    def drop_the_dead(*args, **kw):
+        if torch.cuda.is_current_stream_capturing() and dead:
+            dead.clear()  # now only the cycle holds it
+            for _ in range(1000):  # allocations that would collect
+                cycle = []
+                cycle.append(cycle)
+        return real(*args, **kw)
+
+    during = []
+
+    def watch(phase, info):
+        if phase == "start" and torch.cuda.is_current_stream_capturing():
+            during.append(info["generation"])
+
+    monkeypatch.setattr(steps, "multi_cox_loss", drop_the_dead)
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    gc.callbacks.append(watch)
+    try:
+        state = _state()
+        state.ensure_rates(4)
+        for _ in range(3):  # the warm-up, the capture, a replay
+            survival_train_epoch(state, train, idx, blend=False)
+    finally:
+        gc.callbacks.remove(watch)
+        gc.set_threshold(*thresholds)
+    assert not dead and during == []
+    (epoch,) = state.graphs.values()
+    assert epoch.graphs["step"].graph is not None
+    assert epoch.graphs["step"].replays == 2  # epochs 2 and 3, one step each
+    assert gc.isenabled()
+    gc.collect()
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

@@ -19,8 +19,8 @@ head), ``seresnet50`` and ``r3d_18``.
   superstep, TinyCNN in bfloat16 and inside the multimodal blend model,
   TinyCNN's Grad-CAM maps against JAX's, and the refusals: a multimodal
   model of another family (JAX's message), Grad-CAM of seresnet50 and
-  r3d_18 (which JAX cannot draw; the message names ``--no_gradcam``), an
-  unknown name and ``spatial_dims: 2``.
+  r3d_18 (which JAX cannot draw; the message names ``--no_gradcam``) and
+  an unknown name; ``spatial_dims: 2`` builds tinycnn 2D and r3d_18 3D.
 * One image-only CLI run (``--images --survival --split``, tinycnn): its
   best ``.npz`` loads into the JAX model, which gives the port's eval
   outputs.
@@ -398,11 +398,21 @@ def test_image_only_cli_run_trains_a_tinycnn_jax_loads(tmp_path):
 
 
 def test_unknown_name_and_2d_raise():
+    """An unknown name raises; with ``spatial_dims: 2`` tinycnn builds and
+    answers a (N, H, W, C) batch, and r3d_18 stays 3D (the JAX registry
+    passes it no ``spatial_dims``)."""
     cfg = Config()
     cfg.image_model.name = "vit3d"
     with pytest.raises(ConfigurationError, match="not recognized"):
         build_model(cfg, True, False, False, False)
-    cfg.image_model.name = "tinycnn"
     cfg.image_model.spatial_dims = 2
-    with pytest.raises(ConfigurationError, match="'spatial_dims: 2'"):
-        build_model(cfg, True, False, False, False)
+    cfg.image_model.name = "tinycnn"
+    model = build_model(cfg, True, False, False, False).eval()
+    with torch.no_grad():
+        out = model(torch.from_numpy(_image(12, 2, 16)[:, 0]))
+    assert out.shape == (2, cfg.image_model.num_classes)
+    assert torch.isfinite(out).all()
+    cfg.image_model.name = "r3d_18"
+    with torch.device("meta"):
+        r3d = build_model(cfg, True, False, False, False)
+    assert r3d.stem_conv.weight.dim() == 5

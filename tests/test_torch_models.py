@@ -191,16 +191,27 @@ def test_config_copy_reads_like_the_jax_package(source):
 
 
 def test_registry_rejects_what_is_not_ported():
-    """A name no registry knows raises as the JAX registry does, and
-    ``spatial_dims: 2`` (not ported) names its ROADMAP item."""
+    """A name no registry knows raises as the JAX registry does; with
+    ``spatial_dims: 2`` the flagship builds 2D (every convolution a 2D
+    one, a (N, H, W, C) input), and ``r3d_18`` stays 3D as the JAX registry
+    builds it (registry.py:106)."""
+    from mmnn_sts_torch.models.common import Conv2d, Conv3d
+
     cfg = Config()
     cfg.image_model.name = "resnext101"
     with pytest.raises(ConfigurationError, match="not recognized"):
         build_model(cfg, images=True, preop=False, postop=False, blend=False)
-    cfg.image_model.name = "densenet121"
     cfg.image_model.spatial_dims = 2
-    with pytest.raises(ConfigurationError, match="ROADMAP"):
-        build_model(cfg, images=True, preop=False, postop=False, blend=False)
+    for name, kind in (("densenet121", Conv2d), ("r3d_18", Conv3d)):
+        cfg.image_model.name = name
+        with torch.device("meta"):
+            model = build_model(cfg, images=True, preop=True, postop=False,
+                                blend=True) if name == "densenet121" else \
+                build_model(cfg, images=True, preop=False, postop=False,
+                            blend=False)
+        convs = [m for m in model.modules()
+                 if isinstance(m, (Conv2d, Conv3d))]
+        assert convs and all(isinstance(m, kind) for m in convs), name
 
 
 def test_config_example_builds_the_flagship_in_bf16():
@@ -232,12 +243,15 @@ def test_config_example_builds_the_flagship_in_bf16():
     ("mesh_axes", ["data", "space"]),
 ])
 def test_config_refuses_what_one_card_does_not_run(tmp_path, setting, value):
-    """A mesh of more than one device and a 'space' axis raise at parse
-    time, naming their ROADMAP item; [-1] and [1] with ['data'] (the one
-    card) are accepted."""
+    """A 'space' axis (and a 'model' axis of more than one device) raise at
+    parse time, naming their ROADMAP item; [-1] and [1] with ['data'] are
+    accepted. A data mesh of more than one device parses, and
+    ``parallel/mesh.make_mesh`` refuses it in a world of one rank with the
+    JAX package's message."""
     import json
 
     from mmnn_sts_torch.config import parse_config
+    from mmnn_sts_torch.parallel.mesh import make_mesh
 
     path = tmp_path / "config.json"
     for shape in ([-1], [1]):
@@ -247,9 +261,20 @@ def test_config_refuses_what_one_card_does_not_run(tmp_path, setting, value):
     tpu = {setting: value}
     if setting == "mesh_axes":
         tpu["mesh_shape"] = [-1, 1]
+        path.write_text(json.dumps({"TPU": tpu}))
+        with pytest.raises(ConfigurationError,
+                           match="ROADMAP.md Queue 1, '"):
+            parse_config(str(path))
+        path.write_text(json.dumps({"TPU": {"mesh_shape": [1, 2],
+                                            "mesh_axes": ["data", "model"]}}))
+        with pytest.raises(ConfigurationError,
+                           match="ROADMAP.md Queue 1, '"):
+            parse_config(str(path))
+        return
     path.write_text(json.dumps({"TPU": tpu}))
-    with pytest.raises(ConfigurationError, match="ROADMAP.md Queue 1, '"):
-        parse_config(str(path))
+    cfg = parse_config(str(path))
+    with pytest.raises(ValueError, match="does not cover 1 devices"):
+        make_mesh(cfg.tpu.mesh_shape, tuple(cfg.tpu.mesh_axes))
 
 
 def test_train_mode_is_refused():
@@ -296,3 +321,50 @@ def test_max_pool_backward_is_torch_bit_for_bit(dtype, layout, geometry):
     assert torch.equal(out.nan_to_num(), want.nan_to_num())
     assert torch.equal(mine.grad, theirs.grad)
     assert mine.grad.stride() == theirs.grad.stride()
+
+
+def test_chip_smoke_phases_select_what_they_need():
+    """``chip_smoke.py --phases``: no name runs every phase; a phase brings
+    the phases it reads (mesh_phase the CLI phase's cohort, s3_cli_phase
+    the DICOM tree and the cohort); an unknown name raises before the
+    build; every phase the script can run is in ``PHASES``."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    assert chip_smoke.selected_phases("") == set(chip_smoke.PHASES)
+    assert chip_smoke.selected_phases("planar_phase,mesh_phase") == {
+        "planar_phase", "mesh_phase", "cli_phase"}
+    assert chip_smoke.selected_phases(" s3_cli_phase ") == {
+        "s3_cli_phase", "dicom_cli_phase", "cli_phase"}
+    with pytest.raises(SystemExit, match="unknown phases"):
+        chip_smoke.main(["--phases", "kernel_phase,warp_phase"])
+    for needs in chip_smoke.PHASES.values():
+        assert set(needs) <= set(chip_smoke.PHASES)
+    defined = {name for name in vars(chip_smoke)
+               if name.endswith("_phase") and callable(
+                   getattr(chip_smoke, name))}
+    assert defined == set(chip_smoke.PHASES)
+
+
+def test_chip_smoke_kernels_line_reports_no_unmeasured_number():
+    """Where no phase ran, the kernels line holds None for every number, not
+    a 0 that reads as measured; a kernel phase's rows fill its sums."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    for entry in chip_smoke.kernels_line({}):
+        assert set(entry) >= {"name", "route", "source", "replaces",
+                              "launches", "max_abs_err", "ms", "plain_ms",
+                              "bound_ms", "bound_by", "library_ms"}
+        for key, value in entry.items():
+            if key not in ("name", "route", "source", "replaces"):
+                assert value is None, (entry["name"], key, value)
+    row = {"batch": 8, "dtype": "float32", "ms": 2.0, "plain_ms": 3.0,
+           "bound_ms": 1.0, "bound_by": "bytes", "gemm_ms": 1.5,
+           "host_us": 4.0, "max_abs_err": 1e-6}
+    fp32, bf16 = chip_smoke.kernels_line({"kernel_phase": [row, row]})
+    assert (fp32["ms"], fp32["plain_ms"], fp32["bound_ms"],
+            fp32["host_us_per_call"], fp32["bound_by"]) == (
+        4.0, 6.0, 2.0, 4.0, "bytes")
+    assert fp32["per_rank_of_two_ms"] is None and fp32["backward_ms"] is None
+    assert bf16["ms"] is None and bf16["max_abs_err"] is None

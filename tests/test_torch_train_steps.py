@@ -199,8 +199,10 @@ def test_superstep_leaves_summed_gradients_finite(superstep):
 
 def test_train_path_runs_without_jax():
     """Importing the train path and running a superstep, an eval step, a
-    blend update and a bfloat16 superstep on the CPU loads neither jax nor
-    the JAX package (a subprocess: this pytest process imports jax)."""
+    blend update, a bfloat16 superstep and a 2D forward on the CPU loads
+    neither jax nor the JAX package (a subprocess: this pytest process
+    imports jax; tests/test_torch_mesh.py's ranks run the 2-rank
+    superstep so)."""
     script = (
         "import sys, torch\n"
         "from mmnn_sts_torch.config import Config\n"
@@ -241,6 +243,14 @@ def test_train_path_runs_without_jax():
         "                               augment=False)\n"
         "assert aux['preds'].dtype == torch.bfloat16\n"
         "assert torch.isfinite(aux['loss']) and state.step == 1\n"
+        "cfg.tpu.compute_dtype = 'float32'\n"
+        "cfg.image_model.spatial_dims = 2\n"
+        "model = build_model(cfg, images=True, preop=True, postop=False,\n"
+        "                    blend=True).eval()\n"
+        "with torch.no_grad():\n"
+        "    out = model({'image': torch.rand(2, 32, 32, 2),\n"
+        "                 'clinical': torch.randn(2, 11)})\n"
+        "assert out.shape == (3, 2, 2) and torch.isfinite(out).all()\n"
         "bad = sorted(k for k in sys.modules\n"
         "             if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax')\n"
         "             or k.startswith('mmnn_sts_tpu'))\n"
