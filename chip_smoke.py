@@ -69,13 +69,13 @@ Phases; any failure is an uncaught exception and a nonzero exit:
    alone moves them. One
    superstep with a ragged-tail mask: a finite loss and finite gradients.
    Then, with cuDNN's TF32 on (PyTorch's
-   default) and dropout 0.2 as configured: a warm-up and 3 timed
+   default) and dropout 0.2 as configured: a warm-up and 2 timed
    supersteps (CUDA events; volumes/s, peak memory), two validation steps
    with their C-indices and two blend updates. The first and the last
    superstep draw the same dropout masks (the generator is rewound), and
    the last one's loss on the fixed batch must be below the first's. Then
    the same superstep with the training augmentation on (augment=True, as
-   the run trains): a warm-up and 3 timed supersteps (volumes/s, peak
+   the run trains): a warm-up and 2 timed supersteps (volumes/s, peak
    memory) and one profiled superstep (device busy share, kernel time by
    kind, the fused kernel's and the backward's shares, the augmentation's
    device ms and launches: its calls run inside a profiler range).
@@ -87,7 +87,7 @@ Phases; any failure is an uncaught exception and a nonzero exit:
    of K (the control): the kernel must launch 464 times, every call with
    bfloat16 x and w, and the update (new - old over all parameters) with
    the kernel must lie within BF16_CONTROL_FACTOR x the control's relative
-   L2 distance of the plain op's. Then a warm-up and 3 timed supersteps
+   L2 distance of the plain op's. Then a warm-up and 2 timed supersteps
    (volumes/s, peak memory); the graphed bf16 superstep is profiled in
    phase 10.
 8. Families: every other image model the registry builds (tinycnn,
@@ -121,7 +121,7 @@ Phases; any failure is an uncaught exception and a nonzero exit:
    the step equal (in float32 + aug the second eager run, the control, is
    printed beside it); the
    kernel launched 464 times while the superstep is captured (920 with
-   remat), the body bound once. Then 6 replays timed (volumes/s,
+   remat), the body bound once. Then 3 replays timed (volumes/s,
    reserved memory), the capture's seconds, and one replay profiled (busy
    share, the kernel's device time).
 11. CLI: the survival run as a user starts it, at full width. A synthetic
@@ -267,7 +267,31 @@ Phases; any failure is an uncaught exception and a nonzero exit:
    gloo, one metrics row (rank 0 alone writes), finite losses, C-indices
    in [0, 1], the .npz loads strictly.
    (b) and (c) run in their own processes beside (a).
-21. Prints the kernels' JSON line, the card's line, and last
+21. Space (TPU.mesh_shape's space axis: each volume's depth sharded over
+   ranks, halo exchanges around every convolution and pool), the same
+   superstep and settings: (a) one NCCL rank, TPU.mesh_shape [1, 1] over
+   [data, space], eager and graphed, bit-equal to the run without a
+   process group in every tensor; (b) two ranks sharing the card over
+   gloo (--space-rank, spawned twice), [1, 2] over [data, space], each
+   holding 32 of the resident split's 64 planes, one eager superstep: the
+   ranks bit-equal to each other; the first superstep's losses and
+   predictions within 1e-5 of one process's and the update within 4 x
+   its one-ulp control; 464 launches a rank; each rank's peak memory
+   below 0.75 x one process's; the kernel against the plain version at
+   every (M, K) the ranks called it with; the superstep's seconds, its
+   all-reduces, all-gathers and halo exchanges, each rank's peak memory
+   and resident bytes; (c) python -m torch.distributed.run
+   --nproc_per_node 2 -m mmnn_sts_torch with TPU.mesh_shape [1, 2] over
+   [data, space] on the CLI phase's cohort (16 training patients, 1
+   epoch): rc 0, one metrics row, the mesh logged over [data, space];
+   beside it --inference with Grad-CAM of the first 8 patients of its
+   test split on the CLI phase's best weights over two ranks (this
+   script's --space-cli: cli.main with TF32 off and cuDNN
+   deterministic), against the same inference in one process: every
+   attention map within 1e-3 and the predictions within 1e-5. (b) and
+   (c) run in their own processes beside (a) and one process's
+   inference.
+22. Prints the kernels' JSON line, the card's line, and last
    {"ok": true, "device": {...}}.
 
 ``--phases a,b`` runs only the named phases and the phases they need
@@ -322,7 +346,7 @@ PROFILE_KINDS = (
 )
 # the flagship superstep: A microbatches of B volumes (SUPER_BATCH_SIZE 64)
 TRAIN_MICRO, TRAIN_BATCH = 8, 8
-TRAIN_TIMED = 3  # timed supersteps after one warm-up
+TRAIN_TIMED = 2  # timed supersteps after one warm-up
 TRAIN_LR = 1e-2  # OneCycle peak over the short run
 # kernel vs plain-op superstep, x max(1, |plain|) per tensor: roundoff
 # alone exceeds 1e-3 (train_phase's control, the plain op with its product
@@ -354,7 +378,7 @@ DICOM_COMPRESSED = (("rle", ("t1", "t2")), ("jpeg_lossless", ("t1", "t2")),
                     ("jpeg_ls", ("t1", "t2")), ("j2k", ("t1",)))
 DICOM_EPOCHS, S3_EPOCHS = 1, 1
 # the DICOM tree holds the first DICOM_PATIENTS of the CLI phase's patients
-DICOM_PATIENTS = 48
+DICOM_PATIENTS = 32
 S3_BUCKET, S3_ARTIFACTS, S3_PREFIX = "cohorts", "artifacts", "models/smoke"
 # patients of the T1 DICOM tree in the s3 manifest's check (each fetched
 # file's bytes are compared)
@@ -374,7 +398,7 @@ WIDE_CLI_MODEL, WIDE_CLI_EPOCHS, LR_SWEEP_STEPS = "densenet201", 1, 100
 # many replays timed after them, the resident split's volumes; (name,
 # compute dtype, remat, augment) of each run;
 # graphed vs eager x max(1, |eager|) per tensor
-FUSED_STEPS, FUSED_TIMED_EPOCHS = 3, 2
+FUSED_STEPS, FUSED_TIMED_EPOCHS = 3, 1
 # eager runs of each compared superstep of the first run (the first held
 # against, the second the control; the other runs take the first), each
 # timed
@@ -4109,14 +4133,22 @@ def mesh_phase(fd, seed: int, workdir: Path) -> dict:
     return results
 
 
-def mesh_one_rank(fd, cfg, flags, weights, ds, idx, seed, workdir):
-    """(a): one NCCL rank in this process, eager and graphed, against the
-    run without a process group. Returns its results and that run."""
+def mesh_one_rank(fd, cfg, flags, weights, ds, idx, seed, workdir,
+                  shape=(-1,), axes=("data",), what="mesh", base=0):
+    """(a): one NCCL rank in this process, eager and graphed, on the mesh
+    ``shape`` over ``axes``, against the run without a process group.
+    Returns its results (with the run without a process group's peak
+    memory above ``base``, the bytes allocated before its phase's split,
+    and ``base``) and that run."""
     from mmnn_sts_torch.parallel import mesh
     from mmnn_sts_torch.train import graphs
 
     alone = mesh_state(cfg, flags, weights, seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     want = mesh_supersteps(alone, ds, idx, MESH_STEPS, False)
+    results = {"alone_peak_bytes": torch.cuda.max_memory_allocated() - base,
+               "alone_base_bytes": base}
     del alone
     env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
            "LOCAL_WORLD_SIZE": "1"}
@@ -4124,9 +4156,9 @@ def mesh_one_rank(fd, cfg, flags, weights, ds, idx, seed, workdir):
     os.environ.update(env)
     try:
         if not mesh.maybe_initialize_distributed(
-                "cuda", init_method=f"file://{workdir}/nccl_store"):
+                "cuda", init_method=f"file://{workdir}/{what}_nccl_store"):
             raise AssertionError("no process group")
-        ranks = mesh.make_mesh([-1], ("data",))
+        ranks = mesh.make_mesh(list(shape), axes)
         if ranks.backend != "nccl":
             raise AssertionError(f"one rank on the card took {ranks.backend}")
         eager = mesh_state(cfg, flags, weights, seed, ranks)
@@ -4154,13 +4186,14 @@ def mesh_one_rank(fd, cfg, flags, weights, ds, idx, seed, workdir):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
-    results = {"nccl_collectives_per_superstep": per_step,
-               "nccl_launches_per_capture": step.launches_per_capture,
-               "nccl_eager_launches_per_superstep": eager_launches}
-    seconds = {what: [t.pop("seconds") for t in trace] for what, trace in
-               (("alone", want), ("eager", eager_got),
-                ("graphed", graphed_got))}
+    results.update({"nccl_collectives_per_superstep": per_step,
+                    "nccl_launches_per_capture": step.launches_per_capture,
+                    "nccl_eager_launches_per_superstep": eager_launches})
+    seconds = {what: [t.pop("seconds") for t in trace if "seconds" in t]
+               for what, trace in (("alone", want), ("eager", eager_got),
+                                   ("graphed", graphed_got))}
     total = sum(len(t) for t in want)
+    label = what
     for what, got in (("eager", eager_got), ("graphed", graphed_got)):
         equal, worst = 0, {}
         for g, w in zip(got, want):
@@ -4169,16 +4202,17 @@ def mesh_one_rank(fd, cfg, flags, weights, ds, idx, seed, workdir):
             worst = {k: max(worst.get(k, 0.0), d) for k, d in diffs.items()}
         if equal != total:
             raise AssertionError(
-                f"mesh (a) one NCCL rank, {what}: {equal} of {total} "
+                f"{label} (a) one NCCL rank, {what}: {equal} of {total} "
                 f"tensors bit-equal to the run without a process group; "
                 f"largest differences {worst}")
     del eager_got, graphed_got
     if step.launches_per_capture != TRAIN_MICRO * 58 or step.replays < 1 \
             or eager_launches != TRAIN_MICRO * 58:
-        raise AssertionError(f"mesh (a): {step.launches_per_capture} "
+        raise AssertionError(f"{label} (a): {step.launches_per_capture} "
                              f"launches per capture, {step.replays} replays,"
                              f" {eager_launches} eager")
-    print(f"mesh (a) one rank over NCCL (FileStore), TPU.mesh_shape [-1]: "
+    print(f"{label} (a) one rank over NCCL (FileStore), TPU.mesh_shape "
+          f"{list(shape)} over {list(axes)}: "
           f"eager and graphed (survival_train_epoch, {MESH_STEPS} "
           f"supersteps: warm-up, capture + replay, replay) each bit-equal "
           f"to the run without a process group in all {total} tensors "
@@ -4187,13 +4221,38 @@ def mesh_one_rank(fd, cfg, flags, weights, ds, idx, seed, workdir):
           f"BatchNorm forward and backward, one gather a microbatch, one "
           f"gradient sum); {step.launches_per_capture} launches per capture, "
           f"{step.replays} replays; graphed {graphed_s:.1f} s")
-    print(f"mesh (a) superstep seconds (host clock, synchronised; TF32 off, "
-          f"cuDNN deterministic; (b) and (c) running beside): no process "
-          f"group eager {fmt_seconds(seconds['alone'])}; one NCCL rank eager "
-          f"{fmt_seconds(seconds['eager'])}; one NCCL rank graphed (warm-up, "
-          f"capture + replay, replay) {fmt_seconds(seconds['graphed'])}")
+    alone = (f"no process group eager {fmt_seconds(seconds['alone'])}; "
+             if seconds["alone"] else "")
+    print(f"{label} (a) superstep seconds (host clock, synchronised; TF32 "
+          f"off, cuDNN deterministic; other ranks running beside): {alone}"
+          f"one NCCL rank eager {fmt_seconds(seconds['eager'])}; one NCCL "
+          f"rank graphed (warm-up, capture + replay, replay) "
+          f"{fmt_seconds(seconds['graphed'])}")
     results["superstep_seconds"] = seconds
     return results, want
+
+
+_controls = {}
+
+
+def one_ulp_control(cfg, flags, weights, ds, idx, seed):
+    """The first superstep on volumes scaled by 1 + 2^-22 (``mesh_host``)
+    and the parameters before it, on the host; computed once a seed, as
+    mesh_phase's and space_phase's (b) hold their ranks against the same
+    control."""
+    if seed not in _controls:
+        scaled = copy.copy(ds)
+        scaled.inputs = {**ds.inputs, "image": ds.inputs["image"]
+                         * (1 + 2**-22)}
+        control = mesh_host(mesh_supersteps(
+            mesh_state(cfg, flags, weights, seed), scaled, idx,
+            MESH_RANK_STEPS, False))
+        before = {k: v.detach().float().cpu().numpy() for k, v in
+                  state_tensors(mesh_state(cfg, flags, weights, seed),
+                                torch.zeros(1), torch.zeros(1)).items()
+                  if k.startswith("param ")}
+        _controls[seed] = control, before
+    return _controls[seed]
 
 
 def mesh_two_ranks(cfg, flags, weights, ds, idx, seed, want, rank_dir,
@@ -4209,15 +4268,8 @@ def mesh_two_ranks(cfg, flags, weights, ds, idx, seed, want, rank_dir,
         with np.load(rank_dir / f"mesh_rank{r}.npz") as data:
             ranks_out.append({k: data[k] for k in data.files})
     single = mesh_host(want[:MESH_RANK_STEPS])
-    scaled = copy.copy(ds)
-    scaled.inputs = {**ds.inputs, "image": ds.inputs["image"]
-                     * (1 + 2**-22)}
-    control = mesh_host(mesh_supersteps(mesh_state(cfg, flags, weights, seed),
-                                        scaled, idx, MESH_RANK_STEPS, False))
+    control, before = one_ulp_control(cfg, flags, weights, ds, idx, seed)
     params = [k for k in single if k.startswith("param ")]
-    before = {k: v.detach().float().cpu().numpy() for k, v in state_tensors(
-        mesh_state(cfg, flags, weights, seed), torch.zeros(1),
-        torch.zeros(1)).items() if k.startswith("param ")}
 
     def update_dist(got):
         upd = {k: got[k] - before[k] for k in params}
@@ -4260,15 +4312,19 @@ def mesh_two_ranks(cfg, flags, weights, ds, idx, seed, want, rank_dir,
             "gloo_rank_seconds": float(ranks_out[0]["seconds"])}
 
 
-def mesh_cli_check(rc: int, run_dir: Path, flags: dict, wall: float):
+def mesh_cli_check(rc: int, run_dir: Path, flags: dict, wall: float,
+                   what: str = "mesh", stdout_log: str = "stdout.log",
+                   stderr_log: str = "stderr.log"):
     """(c)'s checks: rc 0, both ranks over gloo, one metrics row with
-    finite losses and C-indices in [0, 1], the .npz loads strictly."""
+    finite losses and C-indices in [0, 1], the .npz loads strictly; for
+    the space phase, the mesh logged over [data, space] and not
+    replicated over 'space'."""
     from mmnn_sts_torch.config import parse_config
     from mmnn_sts_torch.convert import load_jax_npz
     from mmnn_sts_torch.models import build_model
 
     out = run_dir / "out"
-    stdout = (run_dir / "stdout.log").read_text()
+    stdout = (run_dir / stdout_log).read_text()
     rows = ([json.loads(x) for x in (out / "metrics.jsonl").read_text()
              .splitlines()] if (out / "metrics.jsonl").exists() else [])
     if rc != 0 or len(rows) != 1 or not (
@@ -4276,26 +4332,360 @@ def mesh_cli_check(rc: int, run_dir: Path, flags: dict, wall: float):
             and 0.0 <= rows[0]["val_c"] <= 1.0
             and 0.0 <= rows[0]["train_c"] <= 1.0):
         raise AssertionError(
-            f"mesh (c) torch.distributed.run: rc {rc}, rows {rows}\n"
+            f"{what} (c) torch.distributed.run: rc {rc}, rows {rows}\n"
             f"{stdout[-2000:]}\n"
-            f"{(run_dir / 'stderr.log').read_text()[-3000:]}")
+            f"{(run_dir / stderr_log).read_text()[-3000:]}")
     load_jax_npz(build_model(parse_config(str(run_dir / "config.json")),
                              **flags), str(out / "best_surv_model.npz"))
     logged = [line for line in stdout.splitlines()
               if line.startswith("distributed:")]
     if len(logged) != 2 or not all("backend gloo" in x for x in logged):
-        raise AssertionError(f"mesh (c): {logged}")
+        raise AssertionError(f"{what} (c): {logged}")
+    meshes = [line.split("; ", 1)[1] for line in stdout.splitlines()
+              if line.startswith("device:")]
+    if what == "space" and (
+            len(meshes) != 2 or "replicated over 'space'" in stdout
+            or not all("over ['data', 'space']" in x for x in meshes)):
+        raise AssertionError(f"space (c): {meshes}")
     counts = [line for line in stdout.splitlines()
               if line.startswith("Training count")]
-    print(f"mesh (c) python -m torch.distributed.run --nproc_per_node 2 -m "
+    print(f"{what} (c) python -m torch.distributed.run --nproc_per_node 2 -m "
           f"mmnn_sts_torch --images --preop --survival --blend, 1 epoch on "
           f"the CLI phase's cohort, {MESH_CLI_PATIENTS} of its training "
-          f"patients: rc 0 (within the mesh phase's {wall:.1f} s); "
+          f"patients: rc 0 (within the {what} phase's {wall:.1f} s); "
+          f"{meshes if what == 'space' else ''} "
           f"{counts[:1]}; {logged}; one metrics row (rank 0 alone writes: "
           f"two writers would append two), train loss "
           f"{rows[0]['train_loss']:.4f}, val C {rows[0]['val_c']:.3f}; the "
           f".npz loads strictly; written: "
           f"{sorted(p.name for p in out.iterdir())}")
+
+
+SPACE_SHAPE = [1, 2]  # (b) and (c): [data, space] over two ranks
+SPACE_MEMORY_LIMIT = 0.75  # a rank's peak memory against one process's
+SPACE_MAP_TOLERANCE = 1e-3  # (c)'s Grad-CAM maps against one process's
+SPACE_INFER_PATIENTS = 8  # (c)'s inference: the first of the test split
+
+
+def space_rank(workdir: str, seed: int) -> int:
+    """One of space_phase's (b) ranks sharing the card over gloo (started
+    by ``--space-rank``): the flagship's eager superstep on this rank's
+    depth slab of the resident split; saves the state's tensors, the
+    launches, collectives and kernel shapes, the superstep's seconds, the
+    peak memory and the slab's bytes."""
+    sys.path.insert(0, str(REPO))
+    from mmnn_sts_torch.data.loader import DeviceDataset
+    from mmnn_sts_torch.ops import fused_dense as fd
+    from mmnn_sts_torch.parallel import mesh
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    if not mesh.maybe_initialize_distributed("cuda"):
+        raise SystemExit("space rank: no torch.distributed environment")
+    ranks = mesh.make_mesh(SPACE_SHAPE, ("data", "space"))
+    cfg, flags, weights, ds, idx = mesh_setup(seed, MESH_RANK_STEPS)
+    image = ds.inputs["image"]
+    a, b = mesh.input_planes(ranks, image.shape[1])
+    slab = DeviceDataset(uids=ds.uids, inputs={
+        **ds.inputs, "image": image[:, a:b].contiguous()},
+        events=ds.events, durations=ds.durations)
+    del ds, image
+    state = mesh_state(cfg, flags, weights, seed, ranks)
+    shapes = set()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mesh.reset_counts()
+    with kernel_shapes(fd, shapes):
+        fd.fused_bn_relu_matmul.launches = 0
+        t0 = time.perf_counter()
+        trace = mesh_supersteps(state, slab, idx, MESH_RANK_STEPS, False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fd.fused_bn_relu_matmul.launches
+    out = mesh_host(trace)
+    out["launches"] = np.asarray(launches)
+    out["collectives"] = np.asarray([mesh.counts["all_reduce"],
+                                     mesh.counts["all_gather"],
+                                     mesh.space_counts["halo"]])
+    out["shapes"] = np.asarray(sorted((m, k) for m, k, _ in shapes))
+    out["seconds"] = np.asarray(wall)
+    out["peak"] = np.asarray(torch.cuda.max_memory_allocated())
+    out["slab_bytes"] = np.asarray(slab.inputs["image"].numel() * 4)
+    out["planes"] = np.asarray([a, b])
+    np.savez(Path(workdir) / f"space_rank{ranks.rank}.npz", **out)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def space_cli(args: list) -> int:
+    """``mmnn_sts_torch.cli.main(args)`` with cuDNN's TF32 off and its
+    deterministic algorithms on, as this script's phases compare: (c)'s
+    inference ranks under torch.distributed.run (``--space-cli``)."""
+    sys.path.insert(0, str(REPO))
+    from mmnn_sts_torch.cli import main as cli_main
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    return cli_main(args)
+
+
+def start_space_ranks(seed: int, rank_dir: Path) -> list:
+    """(b)'s two ranks sharing the card over gloo: this script with
+    ``--space-rank``."""
+    rank_dir.mkdir()
+    port = free_port()
+    procs = []
+    for r in range(2):
+        with open(rank_dir / f"rank{r}.log", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(REPO / "chip_smoke.py"), "--seed",
+                 str(seed), "--space-rank", str(rank_dir)],
+                env={**os.environ, "RANK": str(r), "WORLD_SIZE": "2",
+                     "LOCAL_RANK": str(r), "LOCAL_WORLD_SIZE": "2",
+                     "MASTER_ADDR": "localhost", "MASTER_PORT": str(port),
+                     "OMP_NUM_THREADS": "1"},
+                stdout=log, stderr=subprocess.STDOUT))
+    return procs
+
+
+def run_distributed(run_dir: Path, args: list, tag: str, entry: list):
+    """``python -m torch.distributed.run`` of ``entry`` + ``args`` over two
+    ranks in ``run_dir``, its output in ``<tag>.{stdout,stderr}.log``."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+           "--nproc_per_node", "2", "--master_addr", "localhost",
+           "--master_port", str(free_port())] + entry + args
+    with open(run_dir / f"{tag}.stdout.log", "w") as out, \
+            open(run_dir / f"{tag}.stderr.log", "w") as err:
+        return subprocess.Popen(cmd, cwd=run_dir, stdout=out, stderr=err,
+                                env={**os.environ, "PYTHONPATH": str(REPO)})
+
+
+INFER_ARGS = ["--inference", "--images", "--preop", "--survival", "--blend"]
+
+
+def start_space_cli(workdir: Path):
+    """(c): the survival CLI under torch.distributed.run, two ranks over
+    gloo on the card, TPU.mesh_shape [1, 2] over [data, space], 1 epoch on
+    the CLI phase's cohort with its split's first MESH_CLI_PATIENTS
+    training patients; beside it, the same ranks' --inference with
+    Grad-CAM of the split's first SPACE_INFER_PATIENTS test patients on
+    the CLI phase's best weights (this script's --space-cli). Returns the
+    two processes and their directory."""
+    run_dir = workdir / "space_cli"
+    run_dir.mkdir()
+    splits = {}
+    for split, cut in (("train", MESH_CLI_PATIENTS), ("val", None),
+                       ("test", SPACE_INFER_PATIENTS)):
+        uids = (workdir / "run" / f"{split}_uids.txt").read_text().split()
+        path = run_dir / f"{split}_uids.txt"
+        path.write_text("\n".join(uids[:cut]) + "\n")
+        splits[f"{split}_uid_location"] = str(path)
+    mesh_tpu = {"mesh_axes": ["data", "space"], "mesh_shape": SPACE_SHAPE}
+    for name, source in (("config", "config"), ("infer_one_config",
+                                                  "trained")):
+        config = json.loads((workdir / f"{source}.json").read_text())
+        config["Preprocessing"] = splits
+        (run_dir / f"{name}.json").write_text(json.dumps(config))
+        if name == "infer_one_config":
+            config.setdefault("TPU", {}).update(mesh_tpu)
+            (run_dir / "infer_config.json").write_text(json.dumps(config))
+    config = json.loads((run_dir / "config.json").read_text())
+    config.setdefault("TPU", {}).update(mesh_tpu)
+    (run_dir / "config.json").write_text(json.dumps(config))
+    train = run_distributed(run_dir, [
+        "--images", "--preop", "--survival", "--blend", "--epochs", "1",
+        "--config", "config.json", "--output_path", "out"], "train",
+        ["-m", "mmnn_sts_torch"])
+    infer = run_distributed(run_dir, INFER_ARGS + [
+        "--config", "infer_config.json", "--output_path", "infer"],
+        "infer", [str(REPO / "chip_smoke.py"), "--space-cli"])
+    return [train, infer], run_dir
+
+
+def space_phase(fd, seed: int, workdir: Path) -> dict:
+    """The space axis of TPU.mesh_shape on the card (see the module
+    docstring, phase 21): (b)'s ranks and (c)'s training and inference
+    start first and run beside (a) and one process's inference. Returns
+    the launches, collectives and peaks."""
+    from mmnn_sts_torch.cli import main as cli_main
+
+    cudnn = torch.backends.cudnn
+    tf32, deterministic = cudnn.allow_tf32, cudnn.deterministic
+    cudnn.allow_tf32, cudnn.deterministic = False, True
+    base = torch.cuda.memory_allocated()
+    cfg, flags, weights, ds, idx = mesh_setup(seed, MESH_STEPS)
+    print(f"space: the flagship superstep {TRAIN_MICRO} x {TRAIN_BATCH} at "
+          f"{CLI_SIDE}^3 (augmented, dropout {cfg.image_model.dropout_prob}),"
+          f" cudnn.allow_tf32={cudnn.allow_tf32} cudnn.deterministic="
+          f"{cudnn.deterministic}; (b) and (c) in their own processes beside "
+          f"(a)")
+    t0 = time.perf_counter()
+    rank_dir = workdir / "space_ranks"
+    procs = start_space_ranks(seed, rank_dir)
+    try:
+        cli_procs, run_dir = start_space_cli(workdir)
+        procs += cli_procs
+        results, want = mesh_one_rank(
+            fd, cfg, flags, weights, ds, idx, seed, workdir, shape=(1, 1),
+            axes=("data", "space"), what="space", base=base)
+        t_one = time.perf_counter()
+        cwd = os.getcwd()
+        os.chdir(run_dir)
+        try:
+            rc_one = cli_main(INFER_ARGS + [
+                "--config", "infer_one_config.json", "--output_path",
+                "infer_one"])
+        finally:
+            os.chdir(cwd)
+        one_s = time.perf_counter() - t_one
+        rcs = wait_all(procs, MESH_TIMEOUT)
+    finally:
+        wait_all(procs, 0.0)
+    wall = time.perf_counter() - t0
+    for r, rc in enumerate(rcs[:2]):
+        if rc != 0:
+            raise AssertionError(
+                f"space (b) rank {r} returned {rc}:\n"
+                f"{(rank_dir / f'rank{r}.log').read_text()[-3000:]}")
+    results.update(space_two_ranks(fd, cfg, flags, weights, ds, idx, seed,
+                                   want, rank_dir, results))
+    mesh_cli_check(rcs[2], run_dir, flags, wall, what="space",
+                   stdout_log="train.stdout.log",
+                   stderr_log="train.stderr.log")
+    results.update(space_infer_check(rcs[3], rc_one, run_dir, one_s))
+    print(f"space phase: its processes {wall:.1f} s")
+    cudnn.allow_tf32, cudnn.deterministic = tf32, deterministic
+    return results
+
+
+def space_two_ranks(fd, cfg, flags, weights, ds, idx, seed, want, rank_dir,
+                    alone: dict) -> dict:
+    """(b): the two gloo ranks' results against one process (as mesh_phase's
+    (b): the first superstep's losses and predictions at MESH_FIRST_LIMIT,
+    the update at 4 x its one-ulp control), each rank's peak memory
+    below SPACE_MEMORY_LIMIT x one process's, 464 launches a rank, and
+    the kernel against the plain version at every (M, K) the ranks
+    called it with. One process's peak is ``alone``'s: the bytes its
+    superstep peaked at above those allocated before its phase's split,
+    since a rank's process holds no earlier phase's tensors."""
+    alone_peak, base = alone["alone_peak_bytes"], alone["alone_base_bytes"]
+    ranks_out = []
+    for r in range(2):
+        with np.load(rank_dir / f"space_rank{r}.npz") as data:
+            ranks_out.append({k: data[k] for k in data.files})
+    single = mesh_host(want[:MESH_RANK_STEPS])
+    control, before = one_ulp_control(cfg, flags, weights, ds, idx, seed)
+    params = [k for k in single if k.startswith("param ")]
+
+    def update_dist(got):
+        return rel_l2({k: got[k] - before[k] for k in params},
+                      {k: single[k] - before[k] for k in params}, params)
+
+    def first(got):
+        return {"losses": got["losses"][:1],
+                "preds": got["preds"][:len(got["preds"]) // MESH_RANK_STEPS]}
+
+    dist_two, dist_ctl = update_dist(ranks_out[0]), update_dist(control)
+    first_two = rel_l2(first(ranks_out[0]), first(single),
+                       ["losses", "preds"])
+    first_ctl = rel_l2(first(control), first(single), ["losses", "preds"])
+    same = all(np.array_equal(ranks_out[0][k], ranks_out[1][k])
+               for k in single)
+    per_rank = [int(r["launches"]) // MESH_RANK_STEPS for r in ranks_out]
+    peaks = [int(r["peak"]) for r in ranks_out]
+    slab = [int(r["slab_bytes"]) for r in ranks_out]
+    whole = ds.inputs["image"].numel() * 4
+    shapes = sorted({tuple(int(v) for v in row) for r in ranks_out
+                     for row in r["shapes"]})
+    gen = torch.Generator(device="cuda").manual_seed(seed + 31)
+    worst = 0.0
+    for m, k in shapes:
+        x, a, b, w = operands(gen, m, k, torch.float32)
+        worst = max(worst, check_call(fd, x, a, b, w, TOLERANCE["float32"],
+                                      f"space rank M={m} K={k}")[0])
+    ok = (same and first_two <= MESH_FIRST_LIMIT
+          and dist_two <= max(1e-5, MESH_CONTROL_FACTOR * dist_ctl)
+          and per_rank == [TRAIN_MICRO * 58] * 2
+          and all(p < SPACE_MEMORY_LIMIT * alone_peak for p in peaks))
+    if not ok:
+        raise AssertionError(
+            f"space (b): ranks agree {same}; first losses and predictions "
+            f"rel L2 {first_two:.3e} (limit {MESH_FIRST_LIMIT:g}, one-ulp "
+            f"control {first_ctl:.3e}); update rel L2 {dist_two:.3e} "
+            f"(control {dist_ctl:.3e}); launches a rank {per_rank}; peaks "
+            f"{peaks} against one process's {alone_peak}")
+    counts = ranks_out[0]["collectives"].tolist()
+    gib = 2.0 ** 30
+    print(f"space (b) two ranks sharing the card over gloo, TPU.mesh_shape "
+          f"{SPACE_SHAPE} over ['data', 'space'] (planes "
+          f"{ranks_out[0]['planes'].tolist()} and "
+          f"{ranks_out[1]['planes'].tolist()} of {CLI_SIDE}), "
+          f"{MESH_RANK_STEPS} eager superstep(s) of {TRAIN_MICRO} x "
+          f"{TRAIN_BATCH}: {per_rank[0]} launches a rank a superstep; a "
+          f"superstep's collectives a rank {counts[0]} all-reduces, "
+          f"{counts[1]} all-gathers, of which {counts[2]} halo exchanges; "
+          f"the ranks bit-equal to each other; against one process on the "
+          f"card: the first superstep's losses and predictions rel L2 "
+          f"{first_two:.3e} (limit {MESH_FIRST_LIMIT:g}; the one-ulp "
+          f"control's {first_ctl:.3e}), the update rel L2 {dist_two:.3e} "
+          f"beside the one-ulp control's {dist_ctl:.3e} (limit "
+          f"{MESH_CONTROL_FACTOR:g} x); superstep seconds a rank "
+          f"{fmt_seconds([float(r['seconds']) for r in ranks_out])}; peak "
+          f"memory a rank {peaks[0] / gib:.2f} / {peaks[1] / gib:.2f} GiB "
+          f"against one process's {alone_peak / gib:.2f} GiB (ratio "
+          f"{max(peaks) / alone_peak:.3f}, limit {SPACE_MEMORY_LIMIT:g}; "
+          f"its peak above the {base / gib:.2f} GiB allocated before its "
+          f"split, {(alone_peak + base) / gib:.2f} GiB in all); "
+          f"the resident split's images a rank {slab[0] / 2**20:.1f} MiB "
+          f"against {whole / 2**20:.1f} MiB; the kernel against the plain "
+          f"version at the ranks' {len(shapes)} (M, K) shapes (M "
+          f"{min(m for m, _ in shapes)} .. {max(m for m, _ in shapes)}), "
+          f"max abs err {worst:.2e}")
+    return {"gloo_space_launches_per_rank_superstep": per_rank[0],
+            "gloo_space_collectives": counts,
+            "gloo_space_rank_seconds": float(ranks_out[0]["seconds"]),
+            "space_peak_ratio": max(peaks) / alone_peak,
+            "space_shapes": len(shapes)}
+
+
+def space_infer_check(rc_infer: int, rc_one: int, run_dir: Path,
+                      one_s: float) -> dict:
+    """(c)'s inference: rc 0 both, one prediction CSV and one
+    attention_maps tree (rank 0 alone writes), every map within
+    SPACE_MAP_TOLERANCE of one process's, the predictions within 1e-5."""
+    from mmnn_sts_torch.data.nifti import load_nifti
+
+    two, one = run_dir / "infer", run_dir / "infer_one"
+    err = (run_dir / "infer.stderr.log").read_text()
+    if rc_infer != 0 or rc_one != 0:
+        raise AssertionError(f"space (c) inference: rc {rc_infer} (two "
+                             f"ranks), {rc_one} (one process)\n{err[-3000:]}")
+    maps = sorted(p.relative_to(two) for p in two.rglob("att_map*.nii*"))
+    want = sorted(p.relative_to(one) for p in one.rglob("att_map*.nii*"))
+    if not maps or maps != want:
+        raise AssertionError(f"space (c): maps {len(maps)} against one "
+                             f"process's {len(want)}")
+    worst = max(float(np.abs(load_nifti(str(two / p))
+                             - load_nifti(str(one / p))).max())
+                for p in maps)
+    _, got = read_csv_rows(two / "survival_model_predictions.csv")
+    _, ref = read_csv_rows(one / "survival_model_predictions.csv")
+    pred_err = float(np.abs(got - ref).max())
+    if worst > SPACE_MAP_TOLERANCE or pred_err > 1e-5:
+        raise AssertionError(f"space (c): maps {worst:.3e} from one "
+                             f"process's (limit {SPACE_MAP_TOLERANCE:g}), "
+                             f"predictions {pred_err:.3e}")
+    print(f"space (c) --inference --survival --blend with Grad-CAM under "
+          f"torch.distributed.run over {SPACE_SHAPE} [data, space] (2 gloo "
+          f"ranks, TF32 off, cuDNN deterministic; rank 0 writes) on the "
+          f"test split's first {SPACE_INFER_PATIENTS} patients, the CLI "
+          f"phase's best weights: {len(maps)} maps, "
+          f"max |two ranks - one process| {worst:.2e} (limit "
+          f"{SPACE_MAP_TOLERANCE:g}), predictions {pred_err:.2e}; one "
+          f"process's inference {one_s:.1f} s")
+    return {"space_map_err": worst}
 
 
 # every phase in the order it runs, with the phases whose results or
@@ -4320,6 +4710,7 @@ PHASES = {
     "dicom_cli_phase": ("cli_phase",),
     "s3_cli_phase": ("cli_phase", "dicom_cli_phase"),
     "mesh_phase": ("cli_phase",),
+    "space_phase": ("cli_phase",),
 }
 
 
@@ -4349,9 +4740,15 @@ def main(argv=None) -> int:
                     help="comma-separated phases to run (with the phases "
                          "they need); default: every phase")
     ap.add_argument("--mesh-rank", default="", help=argparse.SUPPRESS)
+    ap.add_argument("--space-rank", default="", help=argparse.SUPPRESS)
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--space-cli"]:  # space_phase's inference ranks
+        return space_cli(argv[1:])
     args = ap.parse_args(argv)
     if args.mesh_rank:  # one of mesh_phase's ranks, started by it
         return mesh_rank(args.mesh_rank, args.seed)
+    if args.space_rank:  # one of space_phase's (b) ranks
+        return space_rank(args.space_rank, args.seed)
     run = selected_phases(args.phases)
 
     if not torch.cuda.is_available():
@@ -4438,6 +4835,7 @@ def main(argv=None) -> int:
             "s3_cli_phase": lambda: s3_cli_phase(
                 fd, args.seed, work, res["dicom_cli_phase"]["root"]),
             "mesh_phase": lambda: mesh_phase(fd, args.seed, work),
+            "space_phase": lambda: space_phase(fd, args.seed, work),
         }
         for phase in PHASES:
             if phase in in_dir and phase in run:
@@ -4571,6 +4969,17 @@ def kernels_line(res: dict) -> list:
             "mesh_phase", "nccl_collectives_per_superstep"),
         "launches_per_superstep_gloo_rank": get(
             "mesh_phase", "gloo_launches_per_rank_superstep"),
+        # the space axis: one of two ranks sharing the card over gloo, each
+        # holding half of every volume's depth planes (M halved, the shapes
+        # of batch 4); its collectives a superstep (all-reduces,
+        # all-gathers, of which halo exchanges) and peak memory against
+        # one process's
+        "launches_per_superstep_gloo_space_rank": get(
+            "space_phase", "gloo_space_launches_per_rank_superstep"),
+        "collectives_per_superstep_gloo_space_rank": get(
+            "space_phase", "gloo_space_collectives"),
+        "peak_memory_ratio_space_rank": get("space_phase",
+                                            "space_peak_ratio"),
         # the 58 calls at the 2D flagship's (8, 64, 64) and at one of two
         # ranks' 4 rows of a 3D microbatch (batch 4 of kernel_phase)
         "planar_ms": get("planar_phase", "kernel_58", "float32", "ms"),

@@ -27,7 +27,10 @@ where the JAX CLI runs it: after the split, the standardisation and
 Under ``torch.distributed.run`` each process is a rank of the mesh of
 ``TPU.mesh_shape`` / ``mesh_axes`` (``parallel/mesh.py``): its device is
 ``cuda:LOCAL_RANK`` (or the CPU with ``--device cpu``), the ranks train as
-one program over the ``data`` axis, and rank 0 alone writes files.
+one program over the ``data`` axis (rows) and the ``space`` axis (volume
+depth, where it divides the configured depth; else replicated over
+``space``, as the JAX loop runs it), the ``model`` axis holds replicas,
+and rank 0 alone writes files.
 Cohorts may be NIfTI or DICOM (``Data.image_format``), local or under
 ``s3://`` (with boto3); with ``Data.bucket`` set, training uploads its
 artifacts and survival inference its prediction CSV there, under
@@ -150,7 +153,8 @@ def main(argv=None) -> int:
     from .models import build_model
     from .models.registry import npz_layout
     from .parallel.mesh import (
-        is_writer, make_mesh, maybe_initialize_distributed, rank_device)
+        is_writer, make_mesh, maybe_initialize_distributed, rank_device,
+        settle_space)
     from .pipeline import (
         TaskFlags,
         load_cohort,
@@ -207,7 +211,10 @@ def main(argv=None) -> int:
     os.makedirs(args.output_path, exist_ok=True)
     if maybe_initialize_distributed(device):
         device = rank_device(device)
-    mesh = make_mesh(cfg.tpu.mesh_shape, tuple(cfg.tpu.mesh_axes))
+    mesh = settle_space(
+        make_mesh(cfg.tpu.mesh_shape, tuple(cfg.tpu.mesh_axes)),
+        cfg.image_model.spatial_size[0]
+        if flags.images and cfg.image_model.spatial_dims == 3 else None)
     logger.info(f"device: {device}; mesh {list(mesh.shape)} over "
                 f"{list(mesh.axis_names)}, rank {mesh.rank}, backend "
                 f"{mesh.backend or 'none (one process)'}")
@@ -219,8 +226,9 @@ def main(argv=None) -> int:
         standardize_bundle(bundle, train_uids)
         logger.info("standardized tabular predictors with train-split stats")
 
-    train_ds = make_split_dataset(cfg, flags, bundle, train_uids, device)
-    val_ds = make_split_dataset(cfg, flags, bundle, val_uids, device)
+    train_ds = make_split_dataset(cfg, flags, bundle, train_uids, device,
+                                  mesh)
+    val_ds = make_split_dataset(cfg, flags, bundle, val_uids, device, mesh)
     num_tabular = (
         int(train_ds.inputs["clinical"].shape[-1])
         if "clinical" in train_ds.inputs
@@ -311,7 +319,7 @@ def main(argv=None) -> int:
         )
 
         test_ds = make_split_dataset(cfg, flags, bundle,
-                                     test_uids or val_uids, device)
+                                     test_uids or val_uids, device, mesh)
         icfg = InferenceConfig(
             blend=flags.blend,
             bootstrap=args.bootstrap,

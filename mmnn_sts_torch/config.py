@@ -6,9 +6,9 @@ reads a path ending in ``.json`` with ``json`` and imports ``yaml`` only
 for any other path, so neither a ``Config`` built from the dataclass
 defaults nor a JSON config needs PyYAML (JSON is a subset of YAML, so the
 JAX package's ``parse_config`` reads the same file into the same
-``Config``). ``validate_config`` also refuses the TPU settings that the
-port does not run: a mesh of more than one device or with a ``space`` axis
-(the port runs on one card).
+``Config``). ``validate_config`` checks what the JAX package's does; the
+mesh's shape is checked against the ranks by ``parallel/mesh.make_mesh``,
+as the JAX package's ``make_mesh`` checks it against the devices.
 
 Validation: t1t2 modality requires in_channels == 2.
 """
@@ -121,10 +121,10 @@ class TPUConfig:
     ``fused_epoch`` (each training step one CUDA graph replay,
     ``train/graphs.py``) and ``device_resident_dataset`` (false: the splits
     stay in host memory and stream to the card, ``data/streaming.py``); of
-    ``mesh_shape`` and ``mesh_axes`` it runs the ``data`` axis, over the
-    ranks of ``torch.distributed`` (``parallel/mesh.py``); a ``space``
-    axis and a ``model`` axis of more than one device raise
-    ``ConfigurationError``. ``microbatch_group`` is
+    ``mesh_shape`` and ``mesh_axes`` it runs the ``data`` axis (rows), the
+    ``space`` axis (volume depth, with halo exchanges) and the ``model``
+    axis (replicas), over the ranks of ``torch.distributed``
+    (``parallel/mesh.py``). ``microbatch_group`` is
     parsed and not read: it groups microbatches inside the JAX superstep's
     program and changes no result."""
 
@@ -242,25 +242,6 @@ def validate_config(cfg: Config) -> None:
         raise ConfigurationError(
             f"Unsupported cox_ties: {cfg.hyperparameters.cox_ties} "
             "(options: 'breslow', 'efron')"
-        )
-    # what the port parses but does not run: the space axis, and a model
-    # axis of more than one device (the JAX package reserves it and
-    # replicates over it). The data axis runs over torch.distributed ranks
-    # (parallel/mesh.py); make_mesh checks the shape against the world.
-    tpu = cfg.tpu
-    if "space" in tpu.mesh_axes:
-        raise ConfigurationError(
-            f"TPU.mesh_axes {tpu.mesh_axes} names 'space': spatial "
-            "partitioning is not ported to mmnn_sts_torch yet (ROADMAP.md "
-            "Queue 1, 'The space and model axes'); use ['data']"
-        )
-    axes = dict(zip(tpu.mesh_axes, tpu.mesh_shape))
-    if axes.get("model", 1) != 1:
-        raise ConfigurationError(
-            f"TPU.mesh_shape {tpu.mesh_shape} over {tpu.mesh_axes} gives the "
-            "'model' axis more than one device: it is not ported to "
-            "mmnn_sts_torch yet (ROADMAP.md Queue 1, 'The space and model "
-            "axes'); use a 'data' axis alone"
         )
 
 

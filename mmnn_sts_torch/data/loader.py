@@ -2,9 +2,12 @@
 package's data/loader.py:51-228).
 
 The whole split (volumes, clinical rows, targets) is moved to the device
-once; a training superstep receives an ``index_select`` of it. One device
-and no mesh: the JAX package's sharding of the sample and depth axes has
-no counterpart on one card.
+once; a training superstep receives an ``index_select`` of it. Under a
+mesh of ranks every rank holds every sample; where the mesh shards volume
+depth over its ``space`` axis (``parallel/mesh.input_planes``: only where
+the axis divides the depth, as the JAX loader's ``_space_ok``,
+loader.py:39-47) a rank holds only its slab of planes of each volume, so
+the split's device memory divides by the axis's size.
 
 Batch layout for gradient accumulation: (accum_steps, micro_batch, ...).
 The ragged last super-batch of an epoch is wrap-padded from the epoch's
@@ -62,8 +65,11 @@ def build_device_dataset(
     labels=None,
     events=None,
     durations=None,
+    planes: tuple[int, int] | None = None,
 ) -> DeviceDataset:
-    """Place a split's arrays on ``device`` as float32 tensors."""
+    """Place a split's arrays on ``device`` as float32 tensors; of the
+    volumes (N, D, H, W, C) only the depth planes ``[start, stop)`` where
+    ``planes`` is given."""
 
     def put(x):
         if x is None:
@@ -72,7 +78,7 @@ def build_device_dataset(
 
     inputs = {}
     if image_volumes is not None:
-        inputs["image"] = put(image_volumes)
+        inputs["image"] = put(depth_slab(image_volumes, planes))
     if clinical is not None:
         inputs["clinical"] = put(clinical)
     if not inputs:
@@ -84,6 +90,14 @@ def build_device_dataset(
         events=put(events),
         durations=put(durations),
     )
+
+
+def depth_slab(volumes, planes: tuple[int, int] | None):
+    """The planes ``[start, stop)`` of volumes (N, D, ...), a copy of their
+    own (all of them where ``planes`` is None)."""
+    if volumes is None or planes is None:
+        return volumes
+    return np.ascontiguousarray(volumes[:, planes[0]:planes[1]])
 
 
 @dataclass

@@ -17,7 +17,10 @@ the batch. A staging buffer is written again only after its copy has run
 (a ring of two). On the CPU the batches are plain host gathers.
 
 The gather is ``index_select`` on the same rows as ``gather_superbatch``,
-so a streamed epoch trains on the same bits as a resident one.
+so a streamed epoch trains on the same bits as a resident one. Where a
+mesh shards volume depth over its ``space`` axis, the host split keeps
+this rank's slab of planes only (``build_host_dataset``'s ``planes``), so
+each prefetched batch copies only the slab.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .loader import EpochBatcher
+from .loader import EpochBatcher, depth_slab
 
 
 @dataclass
@@ -59,10 +62,11 @@ class HostDataset:
 
 
 def build_host_dataset(uids, device, image_volumes=None, clinical=None,
-                       labels=None, events=None, durations=None
-                       ) -> HostDataset:
+                       labels=None, events=None, durations=None,
+                       planes: tuple[int, int] | None = None) -> HostDataset:
     """A split's arrays as float32 host tensors, pinned when ``device`` is
-    a CUDA card."""
+    a CUDA card; of the volumes only the depth planes ``planes`` where it
+    is given."""
     device = torch.device(device)
     pin = device.type == "cuda"
 
@@ -74,7 +78,7 @@ def build_host_dataset(uids, device, image_volumes=None, clinical=None,
 
     inputs = {}
     if image_volumes is not None:
-        inputs["image"] = put(image_volumes)
+        inputs["image"] = put(depth_slab(image_volumes, planes))
     if clinical is not None:
         inputs["clinical"] = put(clinical)
     if not inputs:

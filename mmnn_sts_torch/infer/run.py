@@ -24,9 +24,12 @@ forwarded in chunks, each copied to the card alone (``train/evaluate``),
 and Grad-CAM copies one patient at a time.
 
 Under a mesh of ranks (``state.mesh``) the forward is sharded over the
-``data`` axis and its predictions gathered (``train/steps.py``), so every
-rank computes the same C-indices or F1s; rank 0 alone draws the Grad-CAM
-maps (a batch of one) and writes the files.
+``data`` and ``space`` axes and its predictions gathered
+(``train/steps.py``), so every rank computes the same C-indices or F1s;
+rank 0 alone writes the files. It alone draws the Grad-CAM maps (a batch
+of one) where volumes are whole; under ``space`` every rank draws them on
+its depth slab, the maps and images gathered whole over the ``space``
+ranks.
 """
 
 from __future__ import annotations
@@ -48,8 +51,10 @@ from ..ops.metrics import (
     concordance_index_resamples,
     thresholded_f1s,
 )
+from ..parallel import mesh
 from ..parallel.mesh import is_writer
 from ..train.evaluate import classification_eval_split, survival_eval_split
+from ..train.steps import image_of
 from ..utils.logging import get_logger
 from ..utils.store import upload_artifacts
 from .artifacts import save_probabilities_csv, save_survival_predictions_csv
@@ -101,6 +106,12 @@ def _head0(preds, blend: bool):
     return preds[0] if blend else preds
 
 
+def _draws_maps(ranks) -> bool:
+    """Whether this rank computes the Grad-CAM maps: rank 0, or every rank
+    where the mesh shards volume depth (the forward is collective)."""
+    return is_writer(ranks) or mesh.space_on(ranks)
+
+
 def inference_survival(state, ds: DeviceDataset, cfg: InferenceConfig):
     """Survival inference over a test split (run.py:103-161)."""
     preds = _head0(survival_eval_split(state, ds, blend=cfg.blend,
@@ -109,7 +120,7 @@ def inference_survival(state, ds: DeviceDataset, cfg: InferenceConfig):
     events = ds.events.cpu().numpy()
     durations = ds.durations.cpu().numpy()
 
-    if cfg.gradcam and is_writer(state.mesh):
+    if cfg.gradcam and _draws_maps(state.mesh):
         export_attention_maps(state, ds, cfg, survival=True)
 
     if cfg.bootstrap:
@@ -149,7 +160,7 @@ def inference_classification(state, ds: DeviceDataset,
         chunk=cfg.eval_chunk)["preds"]
     probs, pred_lbl, f1s = thresholded_f1s(_head0(logits, cfg.blend), labels)
 
-    if cfg.gradcam and is_writer(state.mesh):
+    if cfg.gradcam and _draws_maps(state.mesh):
         export_attention_maps(state, ds, cfg, survival=False,
                               pred_labels=pred_lbl, labels=labels,
                               probs=probs)
@@ -169,7 +180,9 @@ def export_attention_maps(state, ds: DeviceDataset, cfg: InferenceConfig,
     """Per-patient Grad-CAM NIfTI export (run.py:203-266). The exported
     att_map is class 0's (VitalStatus); the others are att_map_cls{c}."""
     att_dir = os.path.join(cfg.output_dir, "attention_maps")
-    os.makedirs(att_dir, exist_ok=True)
+    writes = is_writer(state.mesh)
+    if writes:
+        os.makedirs(att_dir, exist_ok=True)
     model = state.model.eval()
     targets = ds.events if survival else ds.labels
     num_classes = int(targets.shape[-1])
@@ -178,21 +191,30 @@ def export_attention_maps(state, ds: DeviceDataset, cfg: InferenceConfig,
         inputs = ds.model_inputs(idx=slice(i, i + 1))
         if isinstance(ds, HostDataset):
             inputs = to_device(ds, {"inputs": inputs})["inputs"]
-        if isinstance(inputs, dict):
-            inputs = {**inputs, "image": eval_transform_batch(inputs["image"])}
-            image = inputs["image"]
-        else:
-            inputs = image = eval_transform_batch(inputs)
-        maps = attention_maps(model, inputs, num_classes,
-                              blend=cfg.blend).cpu().numpy()
+        shard = mesh.space_only(state.mesh, image_of(inputs))
+        space = None if shard is None else shard.space
+        with mesh.sharded(shard):
+            if isinstance(inputs, dict):
+                inputs = {**inputs, "image": eval_transform_batch(
+                    inputs["image"], space=space)}
+                image = inputs["image"]
+            else:
+                inputs = image = eval_transform_batch(inputs, space=space)
+            maps = attention_maps(model, inputs, num_classes,
+                                  blend=cfg.blend).cpu().numpy()
+            if survival:
+                with torch.no_grad():
+                    preds_out = _head0(model(inputs), cfg.blend)[0]
+        if space is not None:
+            image = space.gather(image, image.shape[1] * space.size, 1)
+        if not writes:
+            continue
         image = image.cpu().numpy()
         t1 = image[0, ..., 0]
         t2 = image[0, ..., 1] if image.shape[-1] > 1 else image[0, ..., 0]
 
         if survival:
             dirname = f"_patient_{uid}"
-            with torch.no_grad():
-                preds_out = _head0(model(inputs), cfg.blend)[0]
             preds_out = preds_out.float().cpu().numpy()
             preds_filename = "preds.txt"
         else:

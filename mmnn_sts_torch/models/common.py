@@ -18,6 +18,13 @@ from the ``torch.Generator`` its caller passes. ``remat_call`` runs a
 layer under ``torch.utils.checkpoint`` for ``TPU.remat``; its recompute
 reuses the forward's dropout draws, so it also runs inside a CUDA graph.
 
+Under a step's ``space`` shard (``parallel/mesh.sharded``) a 5-D
+activation is this rank's block of depth planes: the convolutions and
+pools first gather the planes their block of the output reads
+(``SpaceShard.window``), BatchNorm and the global pool sum over the
+ranks, and dropout keeps the rank's planes of the whole batch's draws.
+A 2D model is run replicated over ``space`` (``parallel/mesh.settle_space``).
+
 ``dtype`` is the compute dtype of ``TPU.compute_dtype``, as flax's ``dtype``
 attribute: None (float32) casts nothing; ``torch.bfloat16`` casts a
 layer's input and its float32 parameters at the call, and the layer returns
@@ -79,16 +86,31 @@ def compute_batch_stats(x, mask=None):
       only valid samples count, and a fully masked batch gives identity
       statistics (mean 0, var 1).
 
-    Where x is one rank's rows of a batch sharded over the ``data`` axis
-    (``parallel/mesh.sharded``), the moments go over the ranks in one
-    all-reduce, so the statistics are the whole batch's: without a mask
-    the ranks' ``(E[x], E[x^2])`` are averaged (every rank holds as many
-    rows, and one rank's average is its own bits), with one the sums
-    ``(sum x, sum x^2, n_valid)`` are added."""
+    Where x is one rank's block of a batch sharded over the mesh
+    (``parallel/mesh.sharded``: rows over ``data``, depth planes over
+    ``space``), the moments go over the step's ranks in one all-reduce, so
+    the statistics are the whole batch's: with rows alone and no mask the
+    ranks' ``(E[x], E[x^2])`` are averaged (every rank holds as many rows,
+    and one rank's average is its own bits); under ``space`` (whose blocks
+    of planes may differ, or be empty) and with a mask the sums ``(sum x,
+    sum x^2, n)`` are added, each rank weighing by its valid voxels. A
+    tensor that the ``space`` ranks hold whole (the clinical rows) goes
+    over the ``data`` ranks alone (``Shard.holding``)."""
     xf = x.float()
     dims = (0,) + tuple(range(2, x.dim()))
     zero = xf.new_zeros(())
     shard = mesh.active_shard()
+    if shard is not None:
+        shard = shard.holding(x)
+    if mask is None and shard is not None and shard.space is not None:
+        s1, s2 = xf.sum(dims), xf.square().sum(dims)
+        n = xf.new_full((1,), x.numel() // x.shape[1])
+        s1, s2, n = shard.all_reduce(torch.cat([s1, s2, n])).split(
+            [len(s1)] * 2 + [1])
+        mean = s1 / torch.clamp(n, min=1.0)
+        var = torch.maximum(s2 / torch.clamp(n, min=1.0) - mean.square(),
+                            zero)
+        return mean, var, var * (n / torch.clamp(n - 1.0, min=1.0)), None
     if mask is None:
         n = x.numel() // x.shape[1]
         mean, mean_sq = xf.mean(dims), xf.square().mean(dims)
@@ -125,20 +147,29 @@ _recomputing = threading.local()
 _draws = threading.local()
 
 
-def dropout_uniforms(shape, generator, device) -> torch.Tensor:
-    """``torch.rand(shape)`` from ``generator``: the dropout masks' draws
-    (where the batch is one rank's rows of a sharded one, that rank's rows
-    of the whole batch's draws). Inside ``remat_call``'s recompute the
-    forward's draws come back in order instead, and nothing is drawn."""
+def dropout_uniforms(shape, generator, device,
+                     planes: torch.Tensor | None = None) -> torch.Tensor:
+    """``torch.rand(shape)`` from ``generator``: the dropout masks' draws.
+    Where the batch is one rank's block of a sharded one, that rank's
+    block of the whole batch's draws, as every rank draws them: its rows,
+    and its depth planes where ``planes`` (the activation the draws mask,
+    (N, C, D', H, W)) is depth-sharded. Inside ``remat_call``'s recompute
+    the forward's draws come back in order instead, and nothing is
+    drawn."""
     replay = getattr(_draws, "replay", None)
     if replay is not None:
         return next(replay)
     shard = mesh.active_shard()
     if shard is None:
         u = torch.rand(shape, generator=generator, device=device)
-    else:  # the whole batch's draws, as every rank draws them; its rows
-        u = shard.rows(torch.rand((shape[0] * shard.size,) + tuple(shape[1:]),
-                                  generator=generator, device=device))
+    else:
+        whole = [shape[0] * shard.row_ranks] + list(shape[1:])
+        space = shard.space if planes is not None else None
+        if space is not None:
+            whole[2] = space.depth_of(planes)
+        u = shard.rows(torch.rand(whole, generator=generator, device=device))
+        if space is not None:
+            u = space.keep(u, 2)
     record = getattr(_draws, "record", None)
     if record is not None:
         record.append(u)
@@ -260,18 +291,38 @@ class Dropout(nn.Module):
     def forward(self, x, generator=None):
         if not self.training or self.p == 0.0:
             return x
-        shape = x.shape[:2] + (1,) * (x.dim() - 2) if self.channels else x.shape
-        keep = dropout_uniforms(shape, generator, x.device) < 1.0 - self.p
+        if self.channels:
+            keep = dropout_uniforms(x.shape[:2] + (1,) * (x.dim() - 2),
+                                    generator, x.device)
+        else:
+            keep = dropout_uniforms(x.shape, generator, x.device,
+                                    planes=x if x.dim() == 5 else None)
+        keep = keep < 1.0 - self.p
         return x * (keep.to(x.dtype) / (1.0 - self.p))
+
+
+def _nothing_out(shape, *inputs):
+    """An empty output of ``shape`` (a rank whose block of planes is empty)
+    that still reaches ``inputs`` in the autograd graph, so that this
+    rank's backward runs the same collectives as the others'."""
+    zero = sum(t.sum() for t in inputs if t is not None) * 0
+    return inputs[0].new_zeros(shape) + zero.to(inputs[0].dtype)
 
 
 class _ComputeDtype:
     """A convolution computing in ``compute_dtype`` where it is set (flax
-    ``Conv`` with ``dtype``)."""
+    ``Conv`` with ``dtype``). On a depth-sharded activation
+    (``parallel/mesh.sharded`` with a ``space`` shard) it first gathers the
+    planes its block of the output reads from the neighbours, zero at the
+    volume's edges (``SpaceShard.window``), then convolves with no depth
+    padding."""
 
     compute_dtype: torch.dtype | None = None
 
     def forward(self, x):
+        space = mesh.active_space()
+        if space is not None and x.dim() == 5:
+            return self._sharded_forward(x, space)
         if self.compute_dtype is None:
             return super().forward(x)
         dt = self.compute_dtype
@@ -279,6 +330,25 @@ class _ComputeDtype:
         if self.bias is None:
             return y
         return y + self.bias.to(dt).view((-1,) + (1,) * (y.dim() - 2))
+
+    def _sharded_forward(self, x, space):
+        xw, depth, planes = space.window(x, self.kernel_size[0],
+                                         self.stride[0], self.padding[0])
+        dt = self.compute_dtype
+        w = self.weight if dt is None else self.weight.to(dt)
+        xw = xw if dt is None else xw.to(dt)
+        bias = self.bias if dt is None else None
+        if planes == 0:
+            y = _nothing_out((x.shape[0], self.out_channels, 0) + tuple(
+                mesh.out_depth(n, k, s, p) for n, k, s, p in zip(
+                    x.shape[3:], self.kernel_size[1:], self.stride[1:],
+                    self.padding[1:])), xw, w, bias)
+        else:
+            y = F.conv3d(xw, w, bias, self.stride, (0,) + tuple(
+                self.padding[1:]), self.dilation, self.groups)
+        if dt is not None and self.bias is not None:
+            y = y + self.bias.to(dt).view(-1, 1, 1, 1)
+        return space.register(y, depth)
 
 
 class Conv2d(_ComputeDtype, nn.Conv2d):
@@ -375,13 +445,14 @@ class _MaxPool(torch.autograd.Function):
         pool = _POOL_FN["max"][x.dim() - 2]
         out, idx = pool(x, window, stride, padding, return_indices=True)
         ctx.save_for_backward(idx)
-        ctx.geometry = (x.shape, window, stride, padding)
+        ctx.geometry = (x.shape, window, stride,
+                        _ntuple(padding, x.dim() - 2))
         return out
 
     @staticmethod
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
-        shape, window, stride, padding = ctx.geometry
+        shape, window, stride, pads = ctx.geometry
         (n, c), spatial = shape[:2], shape[2:]
         nd = len(spatial)
         outs = g.shape[2:]
@@ -389,15 +460,15 @@ class _MaxPool(torch.autograd.Function):
         # (row-major over the spatial axes), and its argmax as the offset
         # from that corner
         corner = torch.zeros((), dtype=torch.int64, device=g.device)
-        for axis, (o, size) in enumerate(zip(outs, spatial)):
-            start = torch.arange(o, device=g.device) * stride - padding
+        for axis, (o, size, pad) in enumerate(zip(outs, spatial, pads)):
+            start = torch.arange(o, device=g.device) * stride - pad
             corner = corner.unsqueeze(-1) * size + start.view(
                 (1,) * axis + (-1,))
         offset = idx - corner
         fmt = (torch.contiguous_format if g.is_contiguous()
                else CHANNELS_LAST if nd == 3 else torch.channels_last)
-        acc = torch.zeros((n, c) + tuple(s + 2 * padding for s in spatial),
-                          dtype=g.dtype, device=g.device
+        acc = torch.zeros((n, c) + tuple(s + 2 * p for s, p in zip(
+            spatial, pads)), dtype=g.dtype, device=g.device
                           ).contiguous(memory_format=fmt)
         span = [stride * (o - 1) + 1 for o in outs]
         # an input's windows in row-major order are its offsets in reverse
@@ -410,14 +481,33 @@ class _MaxPool(torch.autograd.Function):
             acc[(slice(None), slice(None)) + region].add_(
                 g.masked_fill(offset != flat, 0))
         grad = acc[(slice(None), slice(None)) + tuple(
-            slice(padding, padding + s) for s in spatial)]
+            slice(p, p + s) for s, p in zip(spatial, pads))]
         return grad.contiguous(memory_format=fmt), None, None, None
 
 
 def max_pool(x, window: int, stride: int, padding: int):
     """Max pool over x's spatial dims (2 or 3) with symmetric integer
     padding (padding counts as -inf); where a gradient is taken, its
-    backward is deterministic (``_MaxPool``)."""
+    backward is deterministic (``_MaxPool``). A depth-sharded activation
+    first gathers its window's planes, -inf at the volume's edges."""
+    space = mesh.active_space()
+    if space is not None and x.dim() == 5:
+        xw, depth, planes = space.window(x, window, stride, padding,
+                                         fill=float("-inf"))
+        pads = (0, padding, padding)
+        y = (_pooled_nothing(x, xw, window, stride, padding) if planes == 0
+             else _max_pool(xw, window, stride, pads))
+        return space.register(y, depth)
+    return _max_pool(x, window, stride, padding)
+
+
+def _pooled_nothing(x, xw, window: int, stride: int, pad: int):
+    """A pool's empty block of planes (``_nothing_out``)."""
+    return _nothing_out((x.shape[0], x.shape[1], 0) + tuple(
+        mesh.out_depth(n, window, stride, pad) for n in x.shape[3:]), xw)
+
+
+def _max_pool(x, window, stride, padding):
     if torch.is_grad_enabled() and x.requires_grad:
         return _MaxPool.apply(x, window, stride, padding)
     return _POOL_FN["max"][x.dim() - 2](x, window, stride, padding)
@@ -427,7 +517,18 @@ def avg_pool(x, window: int, stride: int):
     """Average pool over x's spatial dims, VALID padding. Below float32 it
     is flax's ``avg_pool`` (common.py:185-188): a running sum over the
     window in row-major order, each addition rounded to x's dtype, then
-    divided by the window's size (``F.avg_pool3d`` sums in float32)."""
+    divided by the window's size (``F.avg_pool3d`` sums in float32). A
+    depth-sharded activation first gathers its window's planes."""
+    space = mesh.active_space()
+    if space is not None and x.dim() == 5:
+        xw, depth, planes = space.window(x, window, stride, 0)
+        y = (_pooled_nothing(x, xw, window, stride, 0) if planes == 0
+             else _avg_pool(xw, window, stride))
+        return space.register(y, depth)
+    return _avg_pool(x, window, stride)
+
+
+def _avg_pool(x, window: int, stride: int):
     nd = x.dim() - 2
     if x.dtype == torch.float32:
         return _POOL_FN["avg"][nd](x, window, stride)
@@ -442,5 +543,15 @@ def avg_pool(x, window: int, stride: int):
 
 
 def global_avg_pool(x):
-    """(N, C, *spatial) -> (N, C)."""
-    return x.mean(dim=tuple(range(2, x.dim())))
+    """(N, C, *spatial) -> (N, C). A depth-sharded activation adds its
+    block's sum over the ``space`` ranks and divides by the whole
+    volume's voxels. Both paths accumulate in float32 and round to the
+    activation's dtype once (``x.mean`` does so for bfloat16), so in
+    bfloat16 they differ by the float32 summation order alone
+    (tests/test_torch_space.py holds it within bfloat16's rounding)."""
+    dims = tuple(range(2, x.dim()))
+    space = mesh.active_space()
+    if space is None or x.dim() != 5:
+        return x.mean(dim=dims)
+    voxels = space.depth_of(x) * x.shape[3] * x.shape[4]
+    return (space.sum(x.float().sum(dim=dims)) / voxels).to(x.dtype)

@@ -68,7 +68,10 @@ class FusedBottleneck(nn.Module):
     ``kernel`` (Cin, Cout), plus the running ``mean`` and ``var``.
     ``convert.py`` fills it from either JAX layout (``fused1`` or the
     unfused ``norm1`` + ``conv1``). With a ``dtype``, x and the kernel
-    reach the fused op in it, and so does the output."""
+    reach the fused op in it, and so does the output. Under a mesh the
+    statistics are the whole batch's (``compute_batch_stats`` sums them
+    over the ranks) and the kernel runs on this rank's block: its rows
+    and, under ``space``, its depth planes (M = rows x planes x H x W)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  dtype: torch.dtype | None = None):

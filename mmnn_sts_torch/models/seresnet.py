@@ -32,6 +32,12 @@ def no_gradcam(name: str):
 
 
 class SEBlock(nn.Module):
+    """Squeeze and excitation. On a depth-sharded activation the pool sums
+    over the ``space`` ranks, so the channel scales are the whole
+    volume's, and they scale this rank's planes: the fully connected
+    layers' gradients are partial on each rank and summed with the
+    others'."""
+
     def __init__(self, channels: int, reduction: int = 16,
                  dtype: torch.dtype | None = None):
         super().__init__()

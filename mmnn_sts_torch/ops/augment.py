@@ -46,15 +46,23 @@ APPLY_PROBS = {"rotate": 0.5, "flip": 0.5, "zoom": 0.5, "shift": 0.3,
 
 
 def eval_transform_batch(vols, mean: float = IMAGE_DATA_MEAN,
-                         std: float = IMAGE_DATA_STDDEV):
+                         std: float = IMAGE_DATA_STDDEV, space=None):
     """The deterministic validation/inference transform of each volume of a
     batch (B, ...): ``(v - mean * max) / (std * max)``, then min-max to
     [0, 1], with max and min over each volume's whole tensor. An all-zero
-    volume divides by zero and gives NaN, as in the JAX package."""
+    volume divides by zero and gives NaN, as in the JAX package. Where
+    ``vols`` are this rank's depth slabs (a ``parallel/mesh.SpaceShard``),
+    the maxima and minima are the whole volumes', taken over the
+    ``space`` ranks (exact: a maximum rounds nothing)."""
     dims = tuple(range(1, vols.dim()))
     mx = vols.amax(dims, keepdim=True)
+    if space is not None:
+        mx = space.reduce(mx)
     img = (vols - mean * mx) / (std * mx)
     mn, mx = img.amin(dims, keepdim=True), img.amax(dims, keepdim=True)
+    if space is not None:
+        neg_mn, mx = space.reduce(torch.stack([-mn, mx])).unbind(0)
+        mn = -neg_mn
     return (img - mn) / torch.clamp(mx - mn, min=1e-12)
 
 
@@ -272,13 +280,20 @@ def apply_train_augment(vols, params: dict, mean: float = IMAGE_DATA_MEAN,
 def train_augment_batch(vols, generator: torch.Generator):
     """Draw and apply the training augmentation for a batch (B, D, H, W,
     C), each volume with its own parameters. Where the batch is one rank's
-    rows of a microbatch sharded over the ``data`` axis
-    (``parallel/mesh.sharded``), the whole microbatch's parameters are
-    drawn, as every rank draws them, and this rank's rows applied."""
+    block of a sharded microbatch (``parallel/mesh.sharded``), the whole
+    microbatch's parameters are drawn, as every rank draws them, and this
+    rank's rows applied; its depth slabs are first gathered whole over the
+    ``space`` ranks (the rotation, zoom and blurs mix planes), and the
+    augmented volumes then keep this rank's planes (the JAX package's
+    post-augment anchor, steps.py:143-152)."""
     shard = mesh.active_shard()
-    n = vols.shape[0] * (1 if shard is None else shard.size)
+    space = None if shard is None else shard.space
+    if space is not None:
+        vols = space.gather(vols, vols.shape[1] * space.size, 1)
+    n = vols.shape[0] * (1 if shard is None else shard.row_ranks)
     params = draw_augment_params(n, generator, vols.device,
                                  tuple(vols.shape[1:]))
     if shard is not None:
         params = {k: shard.rows(v) for k, v in params.items()}
-    return apply_train_augment(vols, params)
+    out = apply_train_augment(vols, params)
+    return out if space is None else space.keep(out, 1)

@@ -23,12 +23,21 @@ ops/gradcam.py:29-90).
 The forward is one eval-mode call with autograd on, so every DenseNet
 bottleneck runs through the fused op as in any other forward; each class
 pulls one gradient through the layers after ``act`` only.
+
+Under a ``space`` shard (``parallel/mesh.sharded``: the input is this
+rank's depth slab) the logit, which every ``space`` rank computes whole,
+is back-propagated with weight 1 / the ranks (``parallel/mesh.py``'s
+gradient rule), the channel weights are sums over the ranks divided by
+the whole volume's voxels, and the map is gathered whole over the ranks
+before it is normalised and resized, so every rank holds the same maps.
 """
 
 from __future__ import annotations
 
 import torch
 from torch.nn import functional as F
+
+from ..parallel import mesh
 
 
 def resize_trilinear(volume, size):
@@ -59,20 +68,34 @@ def attention_maps(model, inputs, num_classes: int, blend: bool = False):
             "Batch dimension found in attention map - Must use batch size 1 "
             "when computing attention maps"
         )
+    space = mesh.active_space()
     spatial = image.shape[1:-1]
+    if space is not None:
+        spatial = (space.depth_of(image.movedim(-1, 1)),) + spatial[1:]
     with torch.enable_grad():
         out, act = model(inputs, capture_gradcam=True)
         maps = []
         for cls in range(num_classes):
             logit = out[0, 0, cls] if blend else out[0, cls]
+            if space is not None:
+                logit = logit * (1.0 / space.size)
             (grads,) = torch.autograd.grad(
                 logit, act, retain_graph=cls < num_classes - 1)
             with torch.no_grad():
                 # act: (1, channels, *spatial')
                 spatial_axes = tuple(range(2, act.dim()))
-                pooled = grads.mean(dim=(0,) + spatial_axes)
+                if space is None:
+                    pooled = grads.mean(dim=(0,) + spatial_axes)
+                else:
+                    depth = space.depth_of(act)
+                    pooled = (space.sum(grads.float().sum(
+                        dim=(0,) + spatial_axes)) / (
+                        grads.shape[0] * depth * act.shape[3]
+                        * act.shape[4])).to(grads.dtype)
                 heatmap = (act * pooled.view((1, -1) + (1,) * len(
                     spatial_axes))).mean(1)[0].float()
+                if space is not None:
+                    heatmap = space.gather(heatmap, depth, 0)
                 heatmap = heatmap - heatmap.min()
                 heatmap = heatmap / torch.clamp(heatmap.max(), min=1e-12)
                 maps.append(resize_trilinear(heatmap, spatial))

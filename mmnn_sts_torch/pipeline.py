@@ -8,7 +8,9 @@ from the one cleaned clinical table.
 
 With ``TPU.device_resident_dataset: false`` a split stays in host memory
 instead (``data/streaming.HostDataset``, pinned for the card) and its
-batches are streamed to the device (pipeline.py:214-231).
+batches are streamed to the device (pipeline.py:214-231). Under a mesh
+whose ``space`` axis shards volume depth, either holds this rank's slab
+of planes (``parallel/mesh.input_planes``).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from .data.split import stratified_split
 from .data.tabular import ClinicalArrays, load_clinical_arrays
 from .exceptions import ConfigurationError
 from .infer.export import resolve_device
-from .parallel.mesh import is_writer
+from .parallel.mesh import input_planes, is_writer
 from .utils.store import load_uids_any
 
 
@@ -169,11 +171,13 @@ def make_split_dataset(
     bundle: CohortBundle,
     uids,
     device=None,
+    ranks=None,
 ):
     """The dataset of one UID list (those in the cohort) for ``device``
     (default: the card; raises without one): device-resident, or with
     ``TPU.device_resident_dataset: false`` a ``HostDataset`` whose batches
-    go to ``device``."""
+    go to ``device``; under the mesh ``ranks``, this rank's depth slab of
+    each volume where the mesh shards depth."""
     device = resolve_device(device)
     cohort = set(int(x) for x in bundle.uids)
     uids = np.asarray([int(u) for u in uids if int(u) in cohort],
@@ -199,10 +203,11 @@ def make_split_dataset(
             else np.concatenate([clinical_mat, rad_rows], axis=1)
         )
 
-    volumes = None
+    volumes = planes = None
     if bundle.images is not None:
         img_order = {int(u): i for i, u in enumerate(bundle.images.uids)}
         volumes = bundle.images.volumes[[img_order[int(u)] for u in uids]]
+        planes = input_planes(ranks, volumes.shape[1])
 
     build = (build_device_dataset if cfg.tpu.device_resident_dataset
              else build_host_dataset)
@@ -214,4 +219,5 @@ def make_split_dataset(
         labels=None if flags.survival else labels,
         events=events if flags.survival else None,
         durations=durations if flags.survival else None,
+        planes=planes,
     )

@@ -45,9 +45,12 @@ calls it: at the warm-up and at the capture, not at a replay.
 replays.
 
 Under a mesh of ranks (``parallel/mesh.py``) the step's collectives (the
-BatchNorm sums, the output gather, the gradient sum) are captured inside
-the graphs over NCCL, whose communicator is built before the first
-capture (``mesh.maybe_initialize_distributed``). A gloo collective stages
+BatchNorm sums, the output gather, the gradient sum; under ``space`` the
+halo exchanges, the global pool's sums and the augmentation's depth
+gather, each a fixed-shape all-gather or all-reduce planned on the host)
+are captured inside the graphs over NCCL, whose communicators are built
+before the first capture (``mesh.maybe_initialize_distributed``,
+``mesh.make_mesh``). A gloo collective stages
 CUDA tensors through the host, which no capture can hold: over gloo on a
 card the graphs raise ``ConfigurationError`` at their first use, and
 nothing runs eagerly in their place.

@@ -56,6 +56,7 @@ choices are the same on every rank, and only rank 0 writes files
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from dataclasses import dataclass, field
@@ -123,16 +124,109 @@ class TrainResult:
     history: dict = field(default_factory=dict)
 
 
-def _writers(cfg: LoopConfig, writes: bool):
-    """This rank's (metrics writer, best-model saver, checkpoint saver), or
-    None each where the rank does not write (every rank but rank 0); the
-    checkpoint saver is None without a checkpoint directory too."""
-    if not writes:
-        return None, None, None
-    return (MetricsWriter(os.path.join(cfg.output_dir, cfg.metrics_path)),
-            ckpt_lib.AsyncNpzSaver(cfg.npz_layout),
-            ckpt_lib.CheckpointManager(cfg.checkpoint_dir)
-            if cfg.checkpoint_dir else None)
+class _Files:
+    """Rank 0's files: the metrics log, the best model's ``.npz`` (written
+    in the background), the checkpoints (where the run names a
+    directory), the epoch profile, the curves and the final ``.npz``."""
+
+    def __init__(self, cfg: LoopConfig):
+        self.cfg = cfg
+        self.metrics = MetricsWriter(os.path.join(cfg.output_dir,
+                                                  cfg.metrics_path))
+        self.npz = ckpt_lib.AsyncNpzSaver(cfg.npz_layout)
+        self.checkpoints = (ckpt_lib.CheckpointManager(cfg.checkpoint_dir)
+                            if cfg.checkpoint_dir else None)
+
+    def log(self, **record):
+        """Append ``record`` to the metrics log."""
+        self.metrics.write(**record)
+
+    def best(self, model):
+        """Write ``model`` as the best one so far, where the run names it."""
+        if self.cfg.save_params_name:
+            self.npz.submit(os.path.join(self.cfg.output_dir,
+                                         self.cfg.save_params_name), model)
+
+    def checkpoint(self, step: int, state, metrics: dict):
+        if self.checkpoints is not None:
+            self.checkpoints.save(step, state, metrics)
+
+    def final(self, model):
+        if self.cfg.save_params_name:
+            ckpt_lib.save_params_npz(
+                os.path.join(self.cfg.output_dir,
+                             "final_" + self.cfg.save_params_name),
+                model, self.cfg.npz_layout)
+
+    def profile(self, epoch: int, device):
+        """The profiler of ``epoch`` (the second, where ``profile_dir`` is
+        set) as a context that exports its trace, else a null one."""
+        cfg = self.cfg
+        if not cfg.profile_dir or epoch != 1:
+            return contextlib.nullcontext()
+        return _profiled(cfg.profile_dir, epoch, device)
+
+    def save_curves(self, losses, scores, save_scores, blend_history=None,
+                    tracker=None):
+        """The run's plots: the tracker's (classification), the blend
+        weights' (``blend_history``, where the model blends), the
+        (train, val) losses and the (train, val) per-class scores
+        (``save_scores``: C-indices or F1s)."""
+        out = self.cfg.output_dir
+        if tracker is not None:
+            tracker.save_plots(out)
+        if blend_history is not None:
+            save_blend_history(blend_history, out)
+        save_loss_curves(*losses, out)
+        save_scores(*scores, out)
+
+    def close(self):
+        self.npz.close()
+        self.metrics.close()
+
+
+class _NoFiles:
+    """Every other rank's ``_Files``: each writes nothing."""
+
+    def log(self, **record):
+        pass
+
+    def best(self, model):
+        pass
+
+    def checkpoint(self, step: int, state, metrics: dict):
+        pass
+
+    def final(self, model):
+        pass
+
+    def profile(self, epoch: int, device):
+        return contextlib.nullcontext()
+
+    def save_curves(self, losses, scores, save_scores, blend_history=None,
+                    tracker=None):
+        pass
+
+    def close(self):
+        pass
+
+
+def _files(cfg: LoopConfig, state) -> _Files | _NoFiles:
+    """This rank's files: rank 0 of ``state.mesh`` writes them."""
+    return _Files(cfg) if mesh.is_writer(state.mesh) else _NoFiles()
+
+
+@contextlib.contextmanager
+def _profiled(profile_dir: str, epoch: int, device):
+    profiler = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU] + (
+        [torch.profiler.ProfilerActivity.CUDA]
+        if device.type == "cuda" else []))
+    with profiler:
+        yield
+    os.makedirs(profile_dir, exist_ok=True)
+    profiler.export_chrome_trace(
+        os.path.join(profile_dir, f"epoch{epoch + 1}.json"))
 
 
 def _resumed_metrics(cfg: LoopConfig) -> dict:
@@ -205,8 +299,7 @@ def train_survival(
         train_ds.num_samples, cfg.batch_size, accum, seed=cfg.seed,
         two_level=True,
     )
-    writes = mesh.is_writer(state.mesh)
-    metrics, npz_saver, saver = _writers(cfg, writes)
+    files = _files(cfg, state)
     device = train_ds.device
 
     best_loss, best_epoch, best_c_indices = np.inf, -1, None
@@ -244,52 +337,40 @@ def train_survival(
     for epoch in range(first_epoch, cfg.epochs):
         logger.info("-" * 10)
         logger.info(f"epoch {epoch + 1}/{cfg.epochs}")
-        profiler = None
-        if cfg.profile_dir and epoch == 1 and writes:
-            profiler = torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU] + (
-                [torch.profiler.ProfilerActivity.CUDA]
-                if device.type == "cuda" else []))
-            profiler.__enter__()
-
         epoch_t0 = time.perf_counter()
         do_val = (epoch + 1) % cfg.val_interval == 0
         val_out = None
-        if use_fused:
-            idx, tail_idx = _epoch_rows(batcher, epoch)
-            out = survival_train_epoch(
-                state, train_ds, idx, tail_idx, tail_mask,
-                val_ds=val_ds if fuse_val else None, blend=cfg.blend,
-                augment=cfg.augment, ties=cfg.ties,
-                with_val=fuse_val and do_val)
-            # one read-back per epoch
-            epoch_loss = out["loss"].sum().item()
-            preds_host = out["preds"].float().cpu().numpy()
-            if fuse_val and do_val:
-                val_out = {"preds": out["val_preds"].float().cpu().numpy(),
-                           "loss": out["val_loss"].item(),
-                           "selection_loss": out["val_selection"].item()}
-        else:
-            step_losses, step_preds = [], []
-            for s, batch in enumerate(_epoch_batches(train_ds, batcher,
-                                                     epoch)):
-                aux = survival_train_superstep(
-                    state, batch["inputs"], batch["events"],
-                    batch["durations"], blend=cfg.blend,
+        with files.profile(epoch, device):
+            if use_fused:
+                idx, tail_idx = _epoch_rows(batcher, epoch)
+                out = survival_train_epoch(
+                    state, train_ds, idx, tail_idx, tail_mask,
+                    val_ds=val_ds if fuse_val else None, blend=cfg.blend,
                     augment=cfg.augment, ties=cfg.ties,
-                    mask=tail_mask if s == steps_total - 1 else None,
-                )
-                step_losses.append(aux["loss"])
-                step_preds.append(aux["preds"])
-            # one read-back per epoch
-            epoch_loss = torch.stack(step_losses).sum().item()
-            preds_host = torch.stack(step_preds).float().cpu().numpy()
-
-        if profiler is not None:
-            profiler.__exit__(None, None, None)
-            os.makedirs(cfg.profile_dir, exist_ok=True)
-            profiler.export_chrome_trace(
-                os.path.join(cfg.profile_dir, f"epoch{epoch + 1}.json"))
+                    with_val=fuse_val and do_val)
+                # one read-back per epoch
+                epoch_loss = out["loss"].sum().item()
+                preds_host = out["preds"].float().cpu().numpy()
+                if fuse_val and do_val:
+                    val_out = {
+                        "preds": out["val_preds"].float().cpu().numpy(),
+                        "loss": out["val_loss"].item(),
+                        "selection_loss": out["val_selection"].item()}
+            else:
+                step_losses, step_preds = [], []
+                for s, batch in enumerate(_epoch_batches(train_ds, batcher,
+                                                         epoch)):
+                    aux = survival_train_superstep(
+                        state, batch["inputs"], batch["events"],
+                        batch["durations"], blend=cfg.blend,
+                        augment=cfg.augment, ties=cfg.ties,
+                        mask=tail_mask if s == steps_total - 1 else None,
+                    )
+                    step_losses.append(aux["loss"])
+                    step_preds.append(aux["preds"])
+                # one read-back per epoch
+                epoch_loss = torch.stack(step_losses).sum().item()
+                preds_host = torch.stack(step_preds).float().cpu().numpy()
 
         flat_order = batcher.epoch_indices(epoch).reshape(-1)
         epoch_samples = int(flat_order.size)
@@ -330,28 +411,24 @@ def train_survival(
                 best_loss = selection_loss
                 best_epoch = epoch + 1
                 best_c_indices = c_indices
-                if cfg.save_params_name and writes:
-                    npz_saver.submit(
-                        os.path.join(cfg.output_dir, cfg.save_params_name),
-                        state.model)
+                files.best(state.model)
                 logger.info("saved new best metric model")
             logger.info(
                 f"current epoch: {epoch + 1} current loss: "
                 f"{selection_loss:.4f} best loss: {best_loss:.4f} at epoch: "
                 f"{best_epoch} best c_indices: {best_c_indices}"
             )
-            if writes:
-                metrics.write(
-                    kind="survival_epoch",
-                    epoch=epoch + 1,
-                    train_loss=epoch_loss,
-                    val_loss=val_loss,
-                    train_c=train_cs[-1],
-                    val_c=mean_c,
-                    selection_loss=selection_loss,
-                    epoch_seconds=epoch_dt,
-                    samples_per_sec=epoch_samples / max(epoch_dt, 1e-9),
-                )
+            files.log(
+                kind="survival_epoch",
+                epoch=epoch + 1,
+                train_loss=epoch_loss,
+                val_loss=val_loss,
+                train_c=train_cs[-1],
+                val_c=mean_c,
+                selection_loss=selection_loss,
+                epoch_seconds=epoch_dt,
+                samples_per_sec=epoch_samples / max(epoch_dt, 1e-9),
+            )
 
         if cfg.blend and (epoch + 1) % cfg.blend_update_interval == 0:
             if val_preds is None or val_preds_epoch != epoch:
@@ -375,20 +452,16 @@ def train_survival(
             logger.info(f"new weights : {blend_history[-1]}")
 
         state.epoch += 1
-        if saver is not None:
-            saver.save(epoch + 1, state, {
-                "selection_metric": (-selection_loss if do_val
-                                     else float("-inf")),
-                "best_loss": float(best_loss), "best_epoch": best_epoch,
-                "best_c_indices": best_c_indices, "history": history})
+        files.checkpoint(epoch + 1, state, {
+            "selection_metric": (-selection_loss if do_val
+                                 else float("-inf")),
+            "best_loss": float(best_loss), "best_epoch": best_epoch,
+            "best_c_indices": best_c_indices, "history": history})
 
-    if writes:
-        if cfg.blend:
-            save_blend_history(blend_history, cfg.output_dir)
-        save_loss_curves(train_losses, val_losses, cfg.output_dir)
-        save_c_score_curves(train_cs, val_cs, cfg.output_dir)
-        npz_saver.close()
-        metrics.close()
+    files.save_curves((train_losses, val_losses), (train_cs, val_cs),
+                      save_c_score_curves,
+                      blend_history if cfg.blend else None)
+    files.close()
     return TrainResult(
         state=state,
         best_metric=best_loss,
@@ -417,8 +490,7 @@ def train_classification(
         device)
     batcher = EpochBatcher(train_ds.num_samples, cfg.batch_size, 1,
                            seed=cfg.seed)
-    writes = mesh.is_writer(state.mesh)
-    metrics, npz_saver, saver = _writers(cfg, writes)
+    files = _files(cfg, state)
 
     best_metric, best_epoch, best_f1s = -1.0, -1, None
     history = {"train_loss": [], "val_loss": [], "train_f1": [], "val_f1": [],
@@ -518,26 +590,22 @@ def train_classification(
             val_f1s.append(mean_f1)
             if mean_f1 > best_metric:
                 best_metric, best_f1s, best_epoch = mean_f1, f1s, epoch + 1
-                if cfg.save_params_name and writes:
-                    npz_saver.submit(
-                        os.path.join(cfg.output_dir, cfg.save_params_name),
-                        state.model)
+                files.best(state.model)
                 logger.info("saved new best metric model")
             logger.info(
                 f"current epoch: {epoch + 1} current f1: {mean_f1:.4f}"
                 f" best f1: {best_metric:.4f} at epoch: {best_epoch}"
             )
-            if writes:
-                metrics.write(
-                    kind="classification_epoch",
-                    epoch=epoch + 1,
-                    train_loss=epoch_loss,
-                    val_loss=val_loss,
-                    train_f1=train_f1s[-1],
-                    val_f1=mean_f1,
-                    epoch_seconds=epoch_dt,
-                    samples_per_sec=train_ds.num_samples / max(epoch_dt, 1e-9),
-                )
+            files.log(
+                kind="classification_epoch",
+                epoch=epoch + 1,
+                train_loss=epoch_loss,
+                val_loss=val_loss,
+                train_f1=train_f1s[-1],
+                val_f1=mean_f1,
+                epoch_seconds=epoch_dt,
+                samples_per_sec=train_ds.num_samples / max(epoch_dt, 1e-9),
+            )
 
         if cfg.blend and (epoch + 1) % cfg.blend_update_interval == 0:
             # raw logits for both, as the JAX loop (the reference feeds
@@ -560,24 +628,16 @@ def train_classification(
             logger.info(f"new weights : {blend_history[-1]}")
 
         state.epoch += 1
-        if saver is not None:
-            saver.save(epoch + 1, state, {
-                "selection_metric": mean_f1 if np.isfinite(mean_f1) else -1.0,
-                "best_metric": best_metric, "best_epoch": best_epoch,
-                "best_f1s": best_f1s, "history": history})
+        files.checkpoint(epoch + 1, state, {
+            "selection_metric": mean_f1 if np.isfinite(mean_f1) else -1.0,
+            "best_metric": best_metric, "best_epoch": best_epoch,
+            "best_f1s": best_f1s, "history": history})
 
-    if writes:
-        tracker.save_plots(cfg.output_dir)
-        if cfg.blend:
-            save_blend_history(blend_history, cfg.output_dir)
-        save_loss_curves(train_losses, val_losses, cfg.output_dir)
-        save_f1_curves(train_f1s, val_f1s, cfg.output_dir)
-        if cfg.save_params_name:
-            ckpt_lib.save_params_npz(
-                os.path.join(cfg.output_dir, "final_" + cfg.save_params_name),
-                state.model, cfg.npz_layout)
-        npz_saver.close()
-        metrics.close()
+    files.save_curves((train_losses, val_losses), (train_f1s, val_f1s),
+                      save_f1_curves, blend_history if cfg.blend else None,
+                      tracker)
+    files.final(state.model)
+    files.close()
     return TrainResult(
         state=state,
         best_metric=best_metric,

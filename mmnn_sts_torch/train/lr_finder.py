@@ -14,8 +14,9 @@ is wrap-padded and, as in the JAX package, not masked. The loss is smoothed
 ``output_dir`` where matplotlib is installed, and the learning rate of the
 least smoothed loss is logged. The sweep ends at rates where the loss is
 inf or NaN; nothing here asks for finite values. Under a ``mesh`` of ranks
-each step shards its microbatch over the ``data`` axis
-(``train/steps.py``), every rank logs the same sweep and rank 0 draws it.
+each step shards its microbatch over the ``data`` and ``space`` axes
+(``train/steps.py``; the split holds this rank's depth slabs), every rank
+logs the same sweep and rank 0 draws it.
 """
 
 from __future__ import annotations
@@ -60,7 +61,8 @@ def find_lr(cfg, flags, bundle, device, lr_start: float = 1e-7,
     uids = np.asarray(bundle.uids)
     order = rng.permutation(len(uids))
     train_uids = uids[order[:int(0.8 * len(uids))]]
-    train_ds = make_split_dataset(cfg, flags, bundle, train_uids, device)
+    train_ds = make_split_dataset(cfg, flags, bundle, train_uids, device,
+                                  mesh)
 
     torch.manual_seed(hp.seed)
     model = build_model(cfg, flags.images, flags.preop, flags.postop,

@@ -25,16 +25,20 @@ device each step is one replay of a CUDA graph (``train/graphs.py``): one
 graph for the full step, one for the masked tail, one for the validation
 forward. On the CPU the same bodies run eagerly over the same buffers.
 
-Under a ``data`` mesh (``state.mesh``, ``parallel/mesh.py``) every rank
-passes the same global batch and each step takes this rank's contiguous
-rows of each microbatch (``mesh.data_shard``: only where the axis divides
-the microbatch, as the JAX loop's ``_data_axis``), runs them ``with
-mesh.sharded(shard)`` (BatchNorm statistics over the whole microbatch,
-the whole microbatch's random draws), gathers the output rows before the
-loss, so every rank holds the global loss and predictions, and sums the
-gradients over the ranks before the one optimizer update. The eval steps
-forward this rank's rows of the split (a padded last block) and gather
-the predictions in order.
+Under a mesh of ranks (``state.mesh``, ``parallel/mesh.py``) every rank
+passes the same global batch (its depth slab of each volume where the
+``space`` axis is on) and each step takes this rank's contiguous rows of
+each microbatch (``mesh.step_shard``: only where the ``data`` axis
+divides the microbatch, as the JAX loop's ``_data_axis``), runs them
+``with mesh.sharded(shard)`` (BatchNorm statistics over the whole
+microbatch, the convolutions' halo exchanges over the ``space`` ranks,
+the whole microbatch's random draws), gathers the output rows over
+``data`` before the loss, so every rank holds the global loss and
+predictions, back-propagates with the gradient rule's weight and sums the
+gradients over the step's ranks before the one optimizer update. The
+eval steps forward this rank's rows of the split (a padded last block)
+and gather the predictions in order; over ``space`` they are the same on
+every rank.
 """
 
 from __future__ import annotations
@@ -58,7 +62,7 @@ def _transform_inputs(inputs, generator=None):
     without, the deterministic eval transform."""
     def transform(vols):
         if generator is None:
-            return eval_transform_batch(vols)
+            return eval_transform_batch(vols, space=mesh.active_space())
         return train_augment_batch(vols, generator)
 
     if isinstance(inputs, dict):
@@ -72,6 +76,15 @@ def _microbatch(inputs, i: int):
     if isinstance(inputs, dict):
         return {k: v[i] for k, v in inputs.items()}
     return inputs[i]
+
+
+def _backward(shard, loss):
+    """``loss.backward()``, under a mesh with the gradient rule's weight
+    (``parallel/mesh.Shard.backward``)."""
+    if shard is None:
+        loss.backward()
+    else:
+        shard.backward(loss)
 
 
 def _rows(shard, inputs):
@@ -95,16 +108,24 @@ def _num_rows(inputs) -> int:
         inputs, dict) else inputs.shape[0]
 
 
+def image_of(inputs):
+    """The image leaf of a microbatch's inputs (B, ...), None without."""
+    if isinstance(inputs, dict):
+        return inputs.get("image")
+    return inputs if inputs.dim() >= 4 else None
+
+
 def _eval_forward(model, ranks, inputs, blend):
-    """The eval forward of a split's rows, sharded over the ``data`` axis
-    of the mesh ``ranks`` where it has one: each rank forwards its block of
-    the rows (the last row repeated to make whole blocks; eval rows do not
-    interact) and the predictions are gathered in order."""
-    shard = mesh.data_shard(ranks)
+    """The eval forward of a split's rows, sharded over the mesh ``ranks``
+    where it has one: each ``data`` rank forwards its block of the rows
+    (the last row repeated to make whole blocks; eval rows do not
+    interact) and the predictions are gathered in order; over ``space``
+    the volumes are this rank's slabs."""
+    shard = mesh.step_shard(ranks, None, image_of(inputs))
     if shard is None:
         return model(_transform_inputs(inputs))
     n = _num_rows(inputs)
-    whole = -(-n // shard.size) * shard.size
+    whole = -(-n // shard.row_ranks) * shard.row_ranks
 
     def take(x):
         if whole > n:
@@ -114,8 +135,9 @@ def _eval_forward(model, ranks, inputs, blend):
 
     local = ({k: take(v) for k, v in inputs.items()}
              if isinstance(inputs, dict) else take(inputs))
-    return _gathered(shard, model(_transform_inputs(local)), blend).narrow(
-        1 if blend else 0, 0, n)
+    with mesh.sharded(shard):
+        out = model(_transform_inputs(local))
+        return _gathered(shard, out, blend).narrow(1 if blend else 0, 0, n)
 
 
 def _survival_loss(blend_state, out, events, durations, blend, ties,
@@ -136,7 +158,8 @@ def _superstep_body(state, blend_state, inputs, events, durations,
     counter. ``state.step`` is the caller's."""
     model = state.model.train()
     state.zero_gradients()
-    shard = mesh.data_shard(state.mesh, events.shape[1])
+    shard = mesh.step_shard(state.mesh, events.shape[1],
+                            image_of(_microbatch(inputs, 0)))
     loss_sum = torch.zeros((), device=events.device)
     outs = []
     for i in range(events.shape[0]):
@@ -149,7 +172,7 @@ def _superstep_body(state, blend_state, inputs, events, durations,
                 generator=generator), blend)
             loss, _ = _survival_loss(blend_state, out, events[i],
                                      durations[i], blend, ties, mb_mask)
-            loss.backward()
+            _backward(shard, loss)
         loss_sum += loss.detach()
         outs.append(out.detach())
     if shard is not None:
@@ -225,7 +248,7 @@ def _classification_body(state, blend_state, inputs, labels, pos_weight,
     generator = state.generator
     model = state.model.train()
     state.zero_gradients()
-    shard = mesh.data_shard(state.mesh, labels.shape[0])
+    shard = mesh.step_shard(state.mesh, labels.shape[0], image_of(inputs))
     with mesh.sharded(shard):
         local = _transform_inputs(_rows(shard, inputs),
                                   generator if augment else None)
@@ -233,7 +256,7 @@ def _classification_body(state, blend_state, inputs, labels, pos_weight,
                                      generator=generator), blend)
         loss = _classification_loss(blend_state, out, labels, pos_weight,
                                     blend, mask)
-        loss.backward()
+        _backward(shard, loss)
     if shard is not None:
         shard.sum_gradients(state.gradients())
     state.device_update()

@@ -12,7 +12,17 @@ is not installed: ``python -m pytest tests/test_torch_mesh_cuda.py -m cuda
 * A narrow 2D DenseNet blend model and TinyCNN on the card against the
   CPU (eval forward within 1e-4 x max(1, |CPU|)), the kernel launched once
   a bottleneck.
+* The space axis: two gloo ranks sharing the card
+  (``tests/test_torch_space_ranks.py --halo-on-the-card``), a k3 p1
+  convolution of a depth-sharded activation, forward and backward,
+  against the whole convolution.
 """
+
+import os
+import socket
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -166,3 +176,26 @@ def test_cuda_planar_forward_matches_the_cpu(name, deterministic):
         4 if name == "densenet" else 0)
     limit = 1e-4 * max(1.0, want.abs().max().item())
     assert (got - want).abs().max().item() <= limit
+
+
+@pytest.mark.cuda
+def test_cuda_halo_exchange_over_gloo_on_the_card(tmp_path):
+    """Two gloo ranks sharing the card: a k3 p1 convolution's halo
+    exchange, forward and backward, equals the whole convolution."""
+    _needs_card()
+    repo = Path(__file__).resolve().parent.parent
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = {**os.environ, "PYTHONPATH": f"{repo}{os.pathsep}{repo / 'tests'}",
+           "WORLD_SIZE": "2", "LOCAL_WORLD_SIZE": "2",
+           "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
+    procs = [subprocess.Popen(
+        [sys.executable, str(repo / "tests" / "test_torch_space_ranks.py"),
+         "--halo-on-the-card", str(tmp_path)],
+        env={**env, "RANK": str(r), "LOCAL_RANK": str(r)},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    for p in procs:
+        out, err = p.communicate(timeout=300)
+        assert p.returncode == 0 and "ok" in out, err[-3000:]

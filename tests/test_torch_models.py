@@ -243,11 +243,10 @@ def test_config_example_builds_the_flagship_in_bf16():
     ("mesh_axes", ["data", "space"]),
 ])
 def test_config_refuses_what_one_card_does_not_run(tmp_path, setting, value):
-    """A 'space' axis (and a 'model' axis of more than one device) raise at
-    parse time, naming their ROADMAP item; [-1] and [1] with ['data'] are
-    accepted. A data mesh of more than one device parses, and
-    ``parallel/mesh.make_mesh`` refuses it in a world of one rank with the
-    JAX package's message."""
+    """Every mesh parses, as in the JAX package: [-1] and [1] with
+    ['data'], a 'space' axis and a 'model' axis of more than one device;
+    ``parallel/mesh.make_mesh`` refuses a mesh of more than one device in
+    a world of one rank with the JAX package's message."""
     import json
 
     from mmnn_sts_torch.config import parse_config
@@ -260,16 +259,13 @@ def test_config_refuses_what_one_card_does_not_run(tmp_path, setting, value):
         assert parse_config(str(path)).tpu.mesh_shape == shape
     tpu = {setting: value}
     if setting == "mesh_axes":
-        tpu["mesh_shape"] = [-1, 1]
-        path.write_text(json.dumps({"TPU": tpu}))
-        with pytest.raises(ConfigurationError,
-                           match="ROADMAP.md Queue 1, '"):
-            parse_config(str(path))
-        path.write_text(json.dumps({"TPU": {"mesh_shape": [1, 2],
-                                            "mesh_axes": ["data", "model"]}}))
-        with pytest.raises(ConfigurationError,
-                           match="ROADMAP.md Queue 1, '"):
-            parse_config(str(path))
+        for shape, axes in (([-1, 2], value), ([1, 2], ["data", "model"])):
+            path.write_text(json.dumps({"TPU": {"mesh_shape": shape,
+                                                "mesh_axes": axes}}))
+            cfg = parse_config(str(path))
+            assert cfg.tpu.mesh_axes == axes
+            with pytest.raises(ValueError, match="does not cover 1 devices"):
+                make_mesh(cfg.tpu.mesh_shape, tuple(cfg.tpu.mesh_axes))
         return
     path.write_text(json.dumps({"TPU": tpu}))
     cfg = parse_config(str(path))
