@@ -291,7 +291,23 @@ Phases; any failure is an uncaught exception and a nonzero exit:
    attention map within 1e-3 and the predictions within 1e-5. (b) and
    (c) run in their own processes beside (a) and one process's
    inference.
-22. Prints the kernels' JSON line, the card's line, and last
+22. Stamps (utils/tracing.py, kernels/csrc/span_stamp.cu): (a) the stamp
+   kernel alone on card tensors at the flagship superstep's row width
+   (stamp_width(8) = 29), rows between two guard rows of -1: slots 0, 3
+   and 1 each fill their whole row, nondecreasing, and leave every other
+   cell as it was; slots -1, 4 and 2^40 (outside the rows) write nothing;
+   a mark past the row is refused; span_stamp.launches, set to 0 first,
+   counts each launch; 1,000 stamps captured in one CUDA graph, its
+   replay timed, give the device time of one. (b) The flagship superstep
+   (8 x 8 at 64^3, blend, augmentation on) graphed through
+   survival_train_epoch in float32 and bfloat16, two supersteps an
+   epoch: 28 stamps at the warm-up and 28 at the capture, none at the
+   replays; 5 replays, each queued behind a sleep, between CUDA events,
+   the stamp buffer set to -1 before each:
+   the replay writes row slot[0], cells 0..27, nondecreasing, and nothing
+   else; the stamped span (last stamp - first) within 1 % of the events'
+   time. Prints the phases of the last replay.
+23. Prints the kernels' JSON line, the card's line, and last
    {"ok": true, "device": {...}}.
 
 ``--phases a,b`` runs only the named phases and the phases they need
@@ -408,6 +424,16 @@ FUSED_RUNS = (("fp32 + aug", "float32", False, True),
               ("bf16 + aug", "bfloat16", False, True),
               ("fp32 remat", "float32", True, True))
 FUSED_TOLERANCE = 1e-5
+# the stamp kernel's own check: rows of the stamp buffer, the slots stamped
+# (inside, then outside the rows); the graphed flagship supersteps' replays
+# timed against CUDA events, and the stamped span's limit (relative)
+STAMP_ROWS = 4
+STAMP_SLOTS = (0, STAMP_ROWS - 1, 1, -1, STAMP_ROWS, 1 << 40)
+STAMP_REPLAYS, STAMP_TOLERANCE = 5, 0.01
+STAMP_TIMED = 1000  # stamps timed back to back in one graph
+# ~29 ms at 1.75 GHz: longer than the host takes to load a step's indices
+# and launch its replay, so the events time the device
+STAMP_SLEEP_CYCLES = 50_000_000
 # the CLI's fused and streamed runs against its eager ones: within this
 # many times the distance of an eager run on inputs one ulp off (the loop
 # amplifies roundoff over epochs), as the bf16 phase holds its update
@@ -3350,6 +3376,191 @@ def fused_epoch_phase(fd, seed: int) -> dict:
     return results
 
 
+def stamp_phase(fd, seed: int) -> dict:
+    """The device phase stamps on the card (see the module docstring, phase
+    22): the stamp kernel alone at the flagship's row width, then graphed
+    flagship supersteps in float32 and bfloat16, each replay's stamped span
+    against CUDA events. Returns the launches and the largest gaps."""
+    import gc
+
+    from mmnn_sts_torch.config import Config
+    from mmnn_sts_torch.convert import load_jax_npz, to_jax_flat
+    from mmnn_sts_torch.data.loader import DeviceDataset
+    from mmnn_sts_torch.infer.export import model_spec
+    from mmnn_sts_torch.models import build_model
+    from mmnn_sts_torch.train import graphs
+    from mmnn_sts_torch.train.schedule import make_optimizer
+    from mmnn_sts_torch.train.state import create_train_state
+    from mmnn_sts_torch.train.steps import stamp_width, survival_train_epoch
+    from mmnn_sts_torch.utils import tracing
+
+    width = stamp_width(TRAIN_MICRO)
+    marks = width - 1  # no collective without a mesh: 4 + 3A stamps
+    # (a) the kernel alone: STAMP_ROWS rows between two guard rows, every
+    # cell -1; each slot stamps all `width` marks of its row
+    guarded = torch.full((STAMP_ROWS + 2, width), -1, dtype=torch.int64,
+                         device=CLI_DEVICE)
+    buf = guarded[1:-1]
+    tracing.span_stamp.launches = 0
+    for row in STAMP_SLOTS:
+        guarded.fill_(-1)
+        slot = torch.tensor([row], dtype=torch.int64, device=CLI_DEVICE)
+        for mark in range(width):
+            tracing.span_stamp(slot, buf, mark)
+        host = guarded.cpu().numpy()
+        want = np.full_like(host, -1)
+        if 0 <= row < STAMP_ROWS:
+            written = host[row + 1]
+            if not ((written > 0).all() and (np.diff(written) >= 0).all()):
+                raise AssertionError(f"stamp kernel: slot {row} wrote "
+                                     f"{written.tolist()}")
+            want[row + 1] = written
+        if not (host == want).all():
+            changed = np.argwhere(host != want).tolist()
+            raise AssertionError(f"stamp kernel: slot {row} of {STAMP_ROWS} "
+                                 f"rows changed cells (guarded row, mark) "
+                                 f"{changed[:8]} outside its row")
+    try:
+        tracing.span_stamp(slot, buf, width)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("stamp kernel: mark == width was launched")
+    direct = tracing.span_stamp.launches
+    if direct != len(STAMP_SLOTS) * width:
+        raise AssertionError(f"stamp kernel: {direct} launches counted, "
+                             f"{len(STAMP_SLOTS) * width} made")
+    # device time a stamp: STAMP_TIMED stamps captured in a CUDA graph (as
+    # in a training step's), the replay between events behind a sleep
+    slot = torch.zeros(1, dtype=torch.int64, device=CLI_DEVICE)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # the first launch loads the module
+        tracing.span_stamp(slot, buf, 0)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for k in range(STAMP_TIMED):
+            tracing.span_stamp(slot, buf, k % width)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    graph.replay()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(STAMP_SLEEP_CYCLES)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    stamp_us = start.elapsed_time(end) * 1e3 / STAMP_TIMED
+    del graph
+    tracing.span_stamp.launches = direct
+    print(f"stamp kernel: rows of {width} stamps (the flagship superstep's "
+          f"{TRAIN_MICRO} microbatches), {STAMP_ROWS} rows between guard "
+          f"rows: slots {list(STAMP_SLOTS)} x {width} marks, {direct} "
+          f"launches; each slot inside wrote its whole row, nondecreasing, "
+          f"and nothing else; slots outside wrote nothing; mark {width} "
+          f"refused; {stamp_us:.2f} us of device time a stamp (the mean of "
+          f"{STAMP_TIMED} in one CUDA graph's replay)")
+
+    # (b) graphed flagship supersteps, two an epoch: the first epoch warms
+    # up and captures, then single replays at each slot
+    flags = dict(images=True, preop=True, postop=False, blend=True)
+    base = Config()
+    base.image_model.name = CLI_MODEL
+    base.image_model.spatial_size = [CLI_SIDE] * 3
+    spec = model_spec(base, **flags)
+    weights = random_flat_weights(build_model(base, **flags), seed,
+                                  to_jax_flat)
+    rng = np.random.default_rng(seed + 22)
+    inputs, events, durations = synthetic_split(rng, (FUSED_SPLIT,), spec,
+                                                CLI_DEVICE)
+    ds = DeviceDataset(uids=np.arange(FUSED_SPLIT), inputs=inputs,
+                       events=events, durations=durations)
+    idx = rng.permutation(FUSED_SPLIT)[:2 * TRAIN_MICRO * TRAIN_BATCH] \
+        .reshape(2, TRAIN_MICRO, TRAIN_BATCH)
+    results = {"launches_direct": direct, "marks": marks,
+               "stamp_ms": stamp_us * 1e-3}
+    for dtype in ("float32", "bfloat16"):
+        cfg = copy.deepcopy(base)
+        cfg.tpu.compute_dtype = dtype
+        model = build_model(cfg, **flags)
+        load_jax_npz(model, weights)
+        model.to(CLI_DEVICE)
+        state = create_train_state(model, *make_optimizer(
+            model.parameters(), TRAIN_LR, 2 + STAMP_REPLAYS, 1), seed=seed)
+        state.ensure_rates(2 + STAMP_REPLAYS)
+        tracing.span_stamp.launches = 0
+        survival_train_epoch(state, ds, idx, blend=True, augment=True)
+        torch.cuda.synchronize()
+        captured = tracing.span_stamp.launches
+        (steps,) = (v for v in state.graphs.values()
+                    if isinstance(v, graphs.EpochSteps))
+        step = steps.graphs["step"]
+        stamper = steps.stampers["step"]
+        if not step.settled or captured != 2 * marks \
+                or len(stamper.phases) + 1 != marks:
+            raise AssertionError(
+                f"stamps {dtype}: settled {step.settled}, {captured} "
+                f"launches at the warm-up and the capture ({2 * marks} "
+                f"expected), {len(stamper.phases) + 1} marks a row")
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        gaps, spans = [], []
+        for r in range(STAMP_REPLAYS):
+            slot = r % 2
+            steps.rows.buf.fill_(-1)
+            state.begin_step()
+            torch.cuda.synchronize()
+            # queued behind a sleep: the events time the device, not the
+            # host's launch of the replay
+            torch.cuda._sleep(STAMP_SLEEP_CYCLES)
+            start.record()
+            steps.run("step", idx[slot], slot)
+            end.record()
+            torch.cuda.synchronize()
+            state.step += 1
+            host = steps.rows.buf.cpu().numpy()
+            row = host[slot, :marks]
+            rest = np.delete(host, slot, axis=0)
+            if step.last != "replay" or not (row > 0).all() \
+                    or not (np.diff(row) >= 0).all() \
+                    or not (host[slot, marks:] == -1).all() \
+                    or not (rest == -1).all():
+                raise AssertionError(
+                    f"stamps {dtype}: replay {r} ({step.last}) at slot "
+                    f"{slot} wrote row {host[slot].tolist()}, other rows "
+                    f"{rest.tolist()}")
+            stamped_ms = (row[-1] - row[0]) * 1e-6
+            event_ms = start.elapsed_time(end)
+            spans.append(stamped_ms)
+            gaps.append(abs(stamped_ms - event_ms) / event_ms)
+        replayed = tracing.span_stamp.launches - captured
+        if max(gaps) > STAMP_TOLERANCE or replayed:
+            raise AssertionError(
+                f"stamps {dtype}: |stamped - events| / events {gaps} (limit "
+                f"{STAMP_TOLERANCE}); {replayed} launches by the replays")
+        phase_ms = {}
+        for name, dt in zip(stamper.phases, np.diff(row) * 1e-6):
+            phase_ms[name] = phase_ms.get(name, 0.0) + float(dt)
+        results[dtype] = {"launches_per_capture": captured // 2,
+                          "replay_launches": replayed,
+                          "max_rel_gap": max(gaps),
+                          "superstep_ms": float(np.median(spans)),
+                          "phase_ms": phase_ms}
+        print(f"stamps {dtype}: the flagship superstep ({TRAIN_MICRO} x "
+              f"{TRAIN_BATCH} at {CLI_SIDE}^3) graphed, {marks} stamps a "
+              f"row ({captured} launches at the warm-up and the capture, "
+              f"{replayed} by {STAMP_REPLAYS} replays); each replay wrote "
+              f"its own row and nothing else; stamped span "
+              f"{np.median(spans):.3f} ms, |stamped - events| / events at "
+              f"most {max(gaps):.2e} (limit {STAMP_TOLERANCE}); last "
+              f"replay by phase (ms) "
+              + ", ".join(f"{k} {v:.2f}" for k, v in phase_ms.items()))
+        del state, steps, step, stamper, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return results
+
+
 def rows_diff(got: list, want: list, keys) -> float:
     """The largest |got - want| / max(1, |want|) over ``keys`` of two runs'
     metrics.jsonl rows (inf where their epochs differ)."""
@@ -4702,6 +4913,7 @@ PHASES = {
     "remat_phase": (),
     "fused_epoch_phase": (),
     "planar_phase": (),
+    "stamp_phase": (),
     "cli_phase": (),
     "infer_phase": ("cli_phase",),
     "fused_cli_phase": ("cli_phase", "infer_phase"),
@@ -4813,6 +5025,7 @@ def main(argv=None) -> int:
         "remat_phase": lambda: remat_phase(fd, args.seed),
         "fused_epoch_phase": lambda: fused_epoch_phase(fd, args.seed),
         "planar_phase": lambda: planar_phase(fd, args.seed),
+        "stamp_phase": lambda: stamp_phase(fd, args.seed),
     }
     for phase in PHASES:
         if phase == "serve_phase" and phase in run:
@@ -4849,7 +5062,7 @@ def main(argv=None) -> int:
 
 
 def kernels_line(res: dict) -> list:
-    """The two kernels' entries from the phases that ran (None where the
+    """The three kernels' entries from the phases that ran (None where the
     phase that measures a number did not run)."""
     def get(phase, *keys):
         value = res.get(phase)
@@ -5040,7 +5253,29 @@ def kernels_line(res: dict) -> list:
         "per_rank_of_two_ms": total(r["ms"] for r in rows if r["batch"] == 4
                                   and r["dtype"] == "bfloat16"),
     }
-    return [entry, bf16_entry]
+    # the device phase stamps: one thread writes the global timer into the
+    # row a device slot names; launches of the kernel's own check, and per
+    # graphed flagship superstep (the capture's; replays launch nothing)
+    stamp_entry = {
+        "name": "span_stamp",
+        "route": "cuda",
+        "source": "mmnn_sts_torch/kernels/csrc/span_stamp.cu",
+        "replaces": None,  # no TPU kernel: a CUDA graph hides host ranges
+        "launches": get("stamp_phase", "launches_direct"),
+        # a timer write has no plain version, product or byte bound
+        "max_abs_err": None, "ms": get("stamp_phase", "stamp_ms"),
+        "plain_ms": None, "bound_ms": None, "bound_by": None,
+        "library_ms": None,
+        "launches_per_capture_superstep": get("stamp_phase", "float32",
+                                              "launches_per_capture"),
+        "launches_per_replay": get("stamp_phase", "float32",
+                                   "replay_launches"),
+        "max_rel_gap_to_events": max(
+            (get("stamp_phase", d, "max_rel_gap")
+             for d in ("float32", "bfloat16")), default=None)
+        if "stamp_phase" in res else None,
+    }
+    return [entry, bf16_entry, stamp_entry]
 
 
 if __name__ == "__main__":

@@ -10,7 +10,10 @@ the JAX package's train/checkpoint.py).
 * ``AsyncNpzSaver``: the loop's best-model writer. ``submit`` clones the
   weights on the device (no wait for the device); a background thread
   copies the newest snapshot to the host on a side stream and writes it,
-  coalescing snapshots that arrive meanwhile, and drains at exit.
+  coalescing snapshots that arrive meanwhile, and drains at exit. Each
+  write is a ``saver.write`` span of its own thread and adds the arrays'
+  bytes to ``saver.bytes`` (``utils/tracing.py``), in the record of the
+  epoch that submitted it.
 * ``CheckpointManager``: ``torch.save`` of the model, the optimizer's
   momentum, the blend state, the step and epoch counters and the
   generator's state, one file per saved epoch; it keeps the newest
@@ -35,6 +38,7 @@ import torch
 
 from ..convert import _port_entry, load_jax_npz, to_jax_flat
 from ..ops.blending import BlendState, assign_blend
+from ..utils import tracing
 from ..utils.logging import get_logger
 
 
@@ -87,17 +91,22 @@ class AsyncNpzSaver:
         with self._lock:
             if self._closed:
                 raise RuntimeError("AsyncNpzSaver is closed")
-            self._pending[os.path.abspath(path)] = (snap, ready)
+            self._pending[os.path.abspath(path)] = (
+                snap, ready, tracing.current_epoch())
             self._wake.notify_all()
 
-    def _write(self, path: str, snap: dict, ready):
-        if ready is not None:
-            device = next(iter(snap.values())).device
-            side = torch.cuda.Stream(device)
-            with torch.cuda.stream(side):
-                side.wait_event(ready)
-                snap = {k: v.to("cpu") for k, v in snap.items()}
-        np.savez(path, **to_jax_flat(snap, self.layout))
+    def _write(self, path: str, snap: dict, ready, epoch):
+        with tracing.span("saver.write", epoch=epoch):
+            if ready is not None:
+                device = next(iter(snap.values())).device
+                side = torch.cuda.Stream(device)
+                with torch.cuda.stream(side):
+                    side.wait_event(ready)
+                    snap = {k: v.to("cpu") for k, v in snap.items()}
+            flat = to_jax_flat(snap, self.layout)
+            np.savez(path, **flat)
+        tracing.count("saver.bytes", sum(a.nbytes for a in flat.values()),
+                      epoch=epoch)
 
     def _run(self):
         while True:
@@ -106,11 +115,12 @@ class AsyncNpzSaver:
                     self._wake.wait()
                 if not self._pending and self._closed:
                     return
-                path, (snap, ready) = next(iter(self._pending.items()))
+                path, (snap, ready, epoch) = next(
+                    iter(self._pending.items()))
                 del self._pending[path]
                 self._busy += 1
             try:
-                self._write(path, snap, ready)
+                self._write(path, snap, ready, epoch)
             except BaseException as e:  # noqa: BLE001 — surfaced via wait()
                 get_logger().error(f"best-model npz write failed: {e!r}")
                 with self._lock:

@@ -44,6 +44,12 @@ calls it: at the warm-up and at the capture, not at a replay.
 ``launches_per_capture`` keeps the count of the capture, ``replays`` the
 replays.
 
+Each body stamps its phases on the device (``utils/tracing.py``): the step
+and tail bodies into a row of the epoch's ``PhaseRows`` at the slot of the
+index buffer (``gather``, then the phases ``train/steps.py`` marks), the
+validation forward into a row of its own (``val_forward``). The stamps are
+kernels of the body, so a replay writes them as the warm-up did.
+
 Under a mesh of ranks (``parallel/mesh.py``) the step's collectives (the
 BatchNorm sums, the output gather, the gradient sum; under ``space`` the
 halo exchanges, the global pool's sums and the augmentation's depth
@@ -70,6 +76,7 @@ import torch
 
 from ..exceptions import ConfigurationError
 from ..ops import fused_dense
+from ..utils import tracing
 
 
 class GraphCaptureError(RuntimeError):
@@ -129,6 +136,15 @@ class BoundBody:
         self.capture_seconds = 0.0
         self.last = None
         self.stream = None  # the warm-up's and the capture's
+        self.rows = None  # the PhaseRows it stamps, where it has its own
+
+    @property
+    def settled(self) -> bool:
+        """Whether a run replays its graph (on the CPU: runs its bound
+        body) without a warm-up or a capture first."""
+        if self.state.device.type == "cuda":
+            return self.graph is not None
+        return self.body is not None
 
     def _signature(self) -> tuple:
         return (id(self.state.generator),) + tuple(
@@ -196,10 +212,10 @@ def _model_tensors(state) -> list[torch.Tensor]:
 class EpochSteps:
     """The step and tail bodies of one epoch shape over one resident
     split, with their shared buffers: the index buffer (slot, then the
-    flat indices), the tail's mask, and the epoch's loss and prediction
-    rows."""
+    flat indices), the tail's mask, the epoch's loss and prediction rows,
+    and its rows of phase stamps (``rows``, ``width`` stamps a row)."""
 
-    def __init__(self, state, ds, names, shape, steps, body):
+    def __init__(self, state, ds, names, shape, steps, body, width):
         device = state.device
         n = math.prod(shape)
         pin = device.type == "cuda"
@@ -213,6 +229,10 @@ class EpochSteps:
         self.mask = torch.ones(shape, device=device)
         self.loss = torch.zeros(steps, device=device)
         self.preds = None
+        self.rows = tracing.PhaseRows(steps, device, width)
+        self.stampers = {kind: tracing.Stamper(kind, self.rows,
+                                               self.index[:1])
+                         for kind in ("step", "tail")}
         self.graphs = {kind: BoundBody(f"{kind} step", state,
                                        lambda kind=kind: self._bind(kind),
                                        lambda kind=kind: self._reads(kind))
@@ -237,6 +257,7 @@ class EpochSteps:
         inputs = ds.model_inputs()
         targets = {n: getattr(ds, n) for n in self.names}
         mask = self.mask if kind == "tail" else None
+        stamper = self.stampers[kind]
 
         def body(warm: bool):
             slot, flat = self.index[:1], self.index[1:]
@@ -244,10 +265,13 @@ class EpochSteps:
             def take(x):
                 return x.index_select(0, flat).view(shape + x.shape[1:])
 
-            batch = {"inputs": ({k: take(v) for k, v in inputs.items()}
-                                if isinstance(inputs, dict) else take(inputs))}
-            batch.update({n: take(t) for n, t in targets.items()})
-            aux = self.body(state, blend_state, batch, mask)
+            with stamper:
+                batch = {"inputs": ({k: take(v) for k, v in inputs.items()}
+                                    if isinstance(inputs, dict)
+                                    else take(inputs))}
+                batch.update({n: take(t) for n, t in targets.items()})
+                tracing.mark("gather")
+                aux = self.body(state, blend_state, batch, mask)
             if not warm and self.preds is not None:
                 self.loss.index_copy_(0, slot, aux["loss"].view(1))
                 self.preds.index_copy_(0, slot, aux["preds"].unsqueeze(0))
@@ -275,6 +299,7 @@ class EpochSteps:
         """Run step ``slot`` of the epoch (``kind`` "step" or "tail") on
         the batch ``idx``; returns the epoch's loss and prediction rows."""
         self._load(idx, slot, mask)
+        self.rows.writers[slot] = self.stampers[kind]
         graph = self.graphs[kind]
         had_rows = self.preds is not None
         out = graph.run()
@@ -302,25 +327,49 @@ def _check_capturable(state):
             "TPU.fused_epoch off")
 
 
-def epoch_steps(state, key, ds, names, shape, steps, body) -> EpochSteps:
+def epoch_steps(state, key, ds, names, shape, steps, body,
+                width) -> EpochSteps:
     """The cached ``EpochSteps`` of ``key`` on ``state``, made at first
     use."""
     _check_capturable(state)
     if key not in state.graphs:
-        state.graphs[key] = EpochSteps(state, ds, names, shape, steps, body)
+        state.graphs[key] = EpochSteps(state, ds, names, shape, steps, body,
+                                       width)
     return state.graphs[key]
 
 
 def forward_graph(state, key, forward, reads) -> BoundBody:
     """The cached bound validation forward of ``key``: ``forward(blend_state)``
-    returns a dict of tensors; ``reads()`` lists the split's tensors."""
+    returns a dict of tensors; ``reads()`` lists the split's tensors. Its
+    body stamps ``val_forward`` into the one row of its ``rows``."""
     _check_capturable(state)
     if key not in state.graphs:
+        rows = tracing.PhaseRows(1, state.device, 2)
+        stamper = rows.at(0, "val")
+
         def bind():
             blend_state = dataclasses.replace(state.blend)
-            return lambda warm: forward(blend_state)
 
-        state.graphs[key] = BoundBody(
-            "validation forward", state, bind,
-            lambda: _model_tensors(state) + list(reads()))
+            def body(warm: bool):
+                with stamper:
+                    out = forward(blend_state)
+                    tracing.mark("val_forward")
+                return out
+
+            return body
+
+        graph = BoundBody("validation forward", state, bind,
+                          lambda: _model_tensors(state) + list(reads()))
+        graph.rows = rows
+        state.graphs[key] = graph
     return state.graphs[key]
+
+
+def bodies(state) -> list[BoundBody]:
+    """Every bound body of ``state``: each epoch shape's step and tail, and
+    the validation forwards."""
+    out = []
+    for entry in state.graphs.values():
+        out.extend(entry.graphs.values() if isinstance(entry, EpochSteps)
+                   else [entry])
+    return out

@@ -47,6 +47,22 @@ without validation first recomputes the validation predictions against the
 current weights (loop.py:146-153, 353-362). The blend update is copied into
 the state's tensors in place, since a captured graph reads them.
 
+Each epoch is a ``loop.epoch`` span (``utils/tracing.py``), from its start
+to the end of its checkpoint, whose children name its phases:
+``loop.dispatch`` (the epoch function, or the eager step loop),
+``loop.readback`` (the waits on the device: ``.item()``, ``.cpu()``, and
+the copy of the epoch's device phase stamps), ``loop.train_metrics``
+(deduplication and the train C-index or F1), ``loop.validation`` (the
+non-fused eval or the fused path's bookkeeping, with the C-indices or
+F1s), ``loop.best_save`` (the best weights' device clone), ``loop.log``,
+``loop.blend_update`` and ``loop.checkpoint``. ``epoch_seconds`` in
+``metrics.jsonl`` is the open ``loop.epoch`` span read after the train
+metrics. With ``profile_dir`` the run's first epoch that warms up and
+captures no step body (the third with ``fused_epoch``, the second
+without) runs under ``torch.profiler`` and its trace is written there as
+``epoch<n>.json``; at the end of the run rank 0 writes the run's spans,
+counters and phase rows beside it, as ``spans.jsonl``.
+
 Under a mesh of ranks (``state.mesh``) every rank runs the same loop on
 the same global batches, and the steps shard them (``train/steps.py``):
 the losses, predictions, C-indices, F1s, blend updates and best-model
@@ -58,7 +74,6 @@ from __future__ import annotations
 
 import contextlib
 import os
-import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -71,6 +86,7 @@ from ..ops import blending
 from ..ops.losses import pos_weight_from_frequencies
 from ..ops.metrics import c_indices_per_class, thresholded_f1s
 from ..parallel import mesh
+from ..utils import tracing
 from ..utils.logging import MetricsWriter, get_logger
 from ..utils.plotting import (
     LossTracker,
@@ -80,10 +96,12 @@ from ..utils.plotting import (
     save_loss_curves,
 )
 from . import checkpoint as ckpt_lib
+from . import graphs
 from .evaluate import classification_eval_split, survival_eval_split
 from .steps import (
     classification_train_epoch,
     classification_train_step,
+    stamp_width,
     survival_train_epoch,
     survival_train_superstep,
 )
@@ -131,6 +149,7 @@ class _Files:
 
     def __init__(self, cfg: LoopConfig):
         self.cfg = cfg
+        self.profiled = False
         self.metrics = MetricsWriter(os.path.join(cfg.output_dir,
                                                   cfg.metrics_path))
         self.npz = ckpt_lib.AsyncNpzSaver(cfg.npz_layout)
@@ -158,12 +177,14 @@ class _Files:
                              "final_" + self.cfg.save_params_name),
                 model, self.cfg.npz_layout)
 
-    def profile(self, epoch: int, device):
-        """The profiler of ``epoch`` (the second, where ``profile_dir`` is
-        set) as a context that exports its trace, else a null one."""
+    def profile(self, epoch: int, device, steady: bool):
+        """Where ``profile_dir`` is set, the profiler of the run's first
+        ``steady`` epoch as a context that exports its trace; else a null
+        context."""
         cfg = self.cfg
-        if not cfg.profile_dir or epoch != 1:
+        if not cfg.profile_dir or self.profiled or not steady:
             return contextlib.nullcontext()
+        self.profiled = True
         return _profiled(cfg.profile_dir, epoch, device)
 
     def save_curves(self, losses, scores, save_scores, blend_history=None,
@@ -180,8 +201,15 @@ class _Files:
         save_loss_curves(*losses, out)
         save_scores(*scores, out)
 
-    def close(self):
+    def close(self, epochs):
+        """Drain the best-model writer, then, where ``profile_dir`` is set,
+        write the spans and phase rows of ``epochs`` to its
+        ``spans.jsonl``."""
         self.npz.close()
+        if self.cfg.profile_dir:
+            os.makedirs(self.cfg.profile_dir, exist_ok=True)
+            tracing.write_jsonl(
+                os.path.join(self.cfg.profile_dir, "spans.jsonl"), epochs)
         self.metrics.close()
 
 
@@ -200,14 +228,14 @@ class _NoFiles:
     def final(self, model):
         pass
 
-    def profile(self, epoch: int, device):
+    def profile(self, epoch: int, device, steady: bool):
         return contextlib.nullcontext()
 
     def save_curves(self, losses, scores, save_scores, blend_history=None,
                     tracker=None):
         pass
 
-    def close(self):
+    def close(self, epochs):
         pass
 
 
@@ -227,6 +255,13 @@ def _profiled(profile_dir: str, epoch: int, device):
     os.makedirs(profile_dir, exist_ok=True)
     profiler.export_chrome_trace(
         os.path.join(profile_dir, f"epoch{epoch + 1}.json"))
+
+
+def _steady(state, epoch: int, first_epoch: int) -> bool:
+    """Whether ``epoch`` warms up and captures nothing: an epoch after the
+    run's first in which every bound step body replays its graph."""
+    return epoch > first_epoch and all(
+        g.settled for g in graphs.bodies(state))
 
 
 def _resumed_metrics(cfg: LoopConfig) -> dict:
@@ -334,134 +369,163 @@ def train_survival(
     # the whole run's rates: a graph reads the table it was captured with
     state.ensure_rates(cfg.epochs * steps_total)
 
+    # the eager path's rows of phase stamps, one a superstep
+    rows = None if use_fused else tracing.PhaseRows(
+        steps_total, device, stamp_width(accum))
+
     for epoch in range(first_epoch, cfg.epochs):
-        logger.info("-" * 10)
-        logger.info(f"epoch {epoch + 1}/{cfg.epochs}")
-        epoch_t0 = time.perf_counter()
         do_val = (epoch + 1) % cfg.val_interval == 0
         val_out = None
-        with files.profile(epoch, device):
+        with files.profile(epoch, device, _steady(state, epoch, first_epoch)), \
+                tracing.epoch(epoch) as epoch_span:
+            with tracing.span("loop.log"):
+                logger.info("-" * 10)
+                logger.info(f"epoch {epoch + 1}/{cfg.epochs}")
             if use_fused:
                 idx, tail_idx = _epoch_rows(batcher, epoch)
-                out = survival_train_epoch(
-                    state, train_ds, idx, tail_idx, tail_mask,
-                    val_ds=val_ds if fuse_val else None, blend=cfg.blend,
-                    augment=cfg.augment, ties=cfg.ties,
-                    with_val=fuse_val and do_val)
-                # one read-back per epoch
-                epoch_loss = out["loss"].sum().item()
-                preds_host = out["preds"].float().cpu().numpy()
-                if fuse_val and do_val:
-                    val_out = {
-                        "preds": out["val_preds"].float().cpu().numpy(),
-                        "loss": out["val_loss"].item(),
-                        "selection_loss": out["val_selection"].item()}
-            else:
-                step_losses, step_preds = [], []
-                for s, batch in enumerate(_epoch_batches(train_ds, batcher,
-                                                         epoch)):
-                    aux = survival_train_superstep(
-                        state, batch["inputs"], batch["events"],
-                        batch["durations"], blend=cfg.blend,
+                with tracing.span("loop.dispatch"):
+                    out = survival_train_epoch(
+                        state, train_ds, idx, tail_idx, tail_mask,
+                        val_ds=val_ds if fuse_val else None, blend=cfg.blend,
                         augment=cfg.augment, ties=cfg.ties,
-                        mask=tail_mask if s == steps_total - 1 else None,
-                    )
-                    step_losses.append(aux["loss"])
-                    step_preds.append(aux["preds"])
+                        with_val=fuse_val and do_val)
                 # one read-back per epoch
-                epoch_loss = torch.stack(step_losses).sum().item()
-                preds_host = torch.stack(step_preds).float().cpu().numpy()
+                with tracing.span("loop.readback"):
+                    epoch_loss = out["loss"].sum().item()
+                    preds_host = out["preds"].float().cpu().numpy()
+                    if fuse_val and do_val:
+                        val_out = {
+                            "preds": out["val_preds"].float().cpu().numpy(),
+                            "loss": out["val_loss"].item(),
+                            "selection_loss": out["val_selection"].item()}
+                    tracing.stamps()
+            else:
+                with tracing.span("loop.dispatch"):
+                    step_losses, step_preds = [], []
+                    batches = _epoch_batches(train_ds, batcher, epoch)
+                    for s in range(steps_total):
+                        tail = tail_mask is not None and s == steps_total - 1
+                        with rows.at(s, "tail" if tail else "step"):
+                            batch = next(batches)
+                            tracing.mark("gather")
+                            aux = survival_train_superstep(
+                                state, batch["inputs"], batch["events"],
+                                batch["durations"], blend=cfg.blend,
+                                augment=cfg.augment, ties=cfg.ties,
+                                mask=tail_mask if tail else None)
+                        step_losses.append(aux["loss"])
+                        step_preds.append(aux["preds"])
+                    tracing.stamped(rows)
+                # one read-back per epoch
+                with tracing.span("loop.readback"):
+                    epoch_loss = torch.stack(step_losses).sum().item()
+                    preds_host = torch.stack(step_preds).float().cpu().numpy()
+                    tracing.stamps()
 
-        flat_order = batcher.epoch_indices(epoch).reshape(-1)
-        epoch_samples = int(flat_order.size)
-        train_preds = _dedup_epoch(
-            _flatten_epoch_preds(preds_host, cfg.blend), n_unique, cfg.blend)
-        train_events = host_events[flat_order[:n_unique]]
-        train_durations = host_durations[flat_order[:n_unique]]
-        head0 = train_preds[0] if cfg.blend else train_preds
-        train_c = _c_indices(head0, train_events, train_durations)
-        train_cs.append(float(np.mean(train_c)))
+            with tracing.span("loop.train_metrics"):
+                flat_order = batcher.epoch_indices(epoch).reshape(-1)
+                epoch_samples = int(flat_order.size)
+                train_preds = _dedup_epoch(
+                    _flatten_epoch_preds(preds_host, cfg.blend), n_unique,
+                    cfg.blend)
+                train_events = host_events[flat_order[:n_unique]]
+                train_durations = host_durations[flat_order[:n_unique]]
+                head0 = train_preds[0] if cfg.blend else train_preds
+                train_c = _c_indices(head0, train_events, train_durations)
+                train_cs.append(float(np.mean(train_c)))
 
-        epoch_dt = time.perf_counter() - epoch_t0
-        epoch_loss = epoch_loss / train_ds.num_samples
-        train_losses.append(epoch_loss)
-        logger.info(
-            f"epoch {epoch + 1} average loss: {epoch_loss:.4f} "
-            f"({epoch_samples / max(epoch_dt, 1e-9):.1f} samples/s)"
-        )
+            epoch_dt = epoch_span.elapsed_s()
+            epoch_loss = epoch_loss / train_ds.num_samples
+            train_losses.append(epoch_loss)
+            with tracing.span("loop.log"):
+                logger.info(
+                    f"epoch {epoch + 1} average loss: {epoch_loss:.4f} "
+                    f"({epoch_samples / max(epoch_dt, 1e-9):.1f} samples/s)"
+                )
 
-        selection_loss = None
-        if do_val:
-            out = val_out if val_out is not None else survival_eval_split(
-                state, val_ds, blend=cfg.blend, ties=cfg.ties,
-                chunk=cfg.eval_chunk)
-            val_preds, val_preds_epoch = out["preds"], epoch
-            v_head0 = val_preds[0] if cfg.blend else val_preds
-            c_indices = _c_indices(v_head0, val_events, val_durations)
-            mean_c = float(np.mean(c_indices))
-            val_cs.append(mean_c)
-            val_loss = out["loss"] / val_ds.num_samples
-            val_losses.append(val_loss)
-            selection_loss = out["selection_loss"]
-            logger.info(f"All C-indexes: {c_indices}")
-            logger.info(f"Mean C-index: {mean_c}")
-            logger.info(f"validation loss: {val_loss}")
+            selection_loss = None
+            if do_val:
+                with tracing.span("loop.validation"):
+                    out = val_out if val_out is not None else \
+                        survival_eval_split(state, val_ds, blend=cfg.blend,
+                                            ties=cfg.ties,
+                                            chunk=cfg.eval_chunk)
+                    val_preds, val_preds_epoch = out["preds"], epoch
+                    v_head0 = val_preds[0] if cfg.blend else val_preds
+                    c_indices = _c_indices(v_head0, val_events, val_durations)
+                    mean_c = float(np.mean(c_indices))
+                    val_cs.append(mean_c)
+                    val_loss = out["loss"] / val_ds.num_samples
+                    val_losses.append(val_loss)
+                    selection_loss = out["selection_loss"]
 
-            if selection_loss < best_loss:
-                best_loss = selection_loss
-                best_epoch = epoch + 1
-                best_c_indices = c_indices
-                files.best(state.model)
-                logger.info("saved new best metric model")
-            logger.info(
-                f"current epoch: {epoch + 1} current loss: "
-                f"{selection_loss:.4f} best loss: {best_loss:.4f} at epoch: "
-                f"{best_epoch} best c_indices: {best_c_indices}"
-            )
-            files.log(
-                kind="survival_epoch",
-                epoch=epoch + 1,
-                train_loss=epoch_loss,
-                val_loss=val_loss,
-                train_c=train_cs[-1],
-                val_c=mean_c,
-                selection_loss=selection_loss,
-                epoch_seconds=epoch_dt,
-                samples_per_sec=epoch_samples / max(epoch_dt, 1e-9),
-            )
+                improved = selection_loss < best_loss
+                if improved:
+                    best_loss = selection_loss
+                    best_epoch = epoch + 1
+                    best_c_indices = c_indices
+                    with tracing.span("loop.best_save"):
+                        files.best(state.model)
+                with tracing.span("loop.log"):
+                    logger.info(f"All C-indexes: {c_indices}")
+                    logger.info(f"Mean C-index: {mean_c}")
+                    logger.info(f"validation loss: {val_loss}")
+                    if improved:
+                        logger.info("saved new best metric model")
+                    logger.info(
+                        f"current epoch: {epoch + 1} current loss: "
+                        f"{selection_loss:.4f} best loss: {best_loss:.4f} at "
+                        f"epoch: {best_epoch} best c_indices: "
+                        f"{best_c_indices}"
+                    )
+                    files.log(
+                        kind="survival_epoch",
+                        epoch=epoch + 1,
+                        train_loss=epoch_loss,
+                        val_loss=val_loss,
+                        train_c=train_cs[-1],
+                        val_c=mean_c,
+                        selection_loss=selection_loss,
+                        epoch_seconds=epoch_dt,
+                        samples_per_sec=epoch_samples / max(epoch_dt, 1e-9),
+                    )
 
-        if cfg.blend and (epoch + 1) % cfg.blend_update_interval == 0:
-            if val_preds is None or val_preds_epoch != epoch:
-                # no validation this epoch: the kept predictions are missing
-                # or stale, so recompute them with the current weights
-                val_preds = survival_eval_split(
-                    state, val_ds, blend=cfg.blend, ties=cfg.ties,
-                    chunk=cfg.eval_chunk)["preds"]
-                val_preds_epoch = epoch
-            logger.info("Updating gradient blender weights")
-            tr_head = blending.surv_head_losses(
-                _on_device(train_preds, device),
-                _on_device(train_events, device),
-                _on_device(train_durations, device), ties=cfg.ties)
-            va_head = blending.surv_head_losses(
-                _on_device(val_preds, device), _on_device(val_events, device),
-                _on_device(val_durations, device), ties=cfg.ties)
-            blending.assign_blend(state.blend, blending.blend_update(
-                state.blend, tr_head, va_head, True))
-            blend_history.append(state.blend.weights.cpu().tolist())
-            logger.info(f"new weights : {blend_history[-1]}")
+            if cfg.blend and (epoch + 1) % cfg.blend_update_interval == 0:
+                with tracing.span("loop.blend_update"):
+                    if val_preds is None or val_preds_epoch != epoch:
+                        # no validation this epoch: the kept predictions are
+                        # missing or stale, so recompute them with the
+                        # current weights
+                        val_preds = survival_eval_split(
+                            state, val_ds, blend=cfg.blend, ties=cfg.ties,
+                            chunk=cfg.eval_chunk)["preds"]
+                        val_preds_epoch = epoch
+                    logger.info("Updating gradient blender weights")
+                    tr_head = blending.surv_head_losses(
+                        _on_device(train_preds, device),
+                        _on_device(train_events, device),
+                        _on_device(train_durations, device), ties=cfg.ties)
+                    va_head = blending.surv_head_losses(
+                        _on_device(val_preds, device),
+                        _on_device(val_events, device),
+                        _on_device(val_durations, device), ties=cfg.ties)
+                    blending.assign_blend(state.blend, blending.blend_update(
+                        state.blend, tr_head, va_head, True))
+                    blend_history.append(state.blend.weights.cpu().tolist())
+                    logger.info(f"new weights : {blend_history[-1]}")
 
-        state.epoch += 1
-        files.checkpoint(epoch + 1, state, {
-            "selection_metric": (-selection_loss if do_val
-                                 else float("-inf")),
-            "best_loss": float(best_loss), "best_epoch": best_epoch,
-            "best_c_indices": best_c_indices, "history": history})
+            with tracing.span("loop.checkpoint"):
+                state.epoch += 1
+                files.checkpoint(epoch + 1, state, {
+                    "selection_metric": (-selection_loss if do_val
+                                         else float("-inf")),
+                    "best_loss": float(best_loss), "best_epoch": best_epoch,
+                    "best_c_indices": best_c_indices, "history": history})
 
     files.save_curves((train_losses, val_losses), (train_cs, val_cs),
                       save_c_score_curves,
                       blend_history if cfg.blend else None)
-    files.close()
+    files.close(range(first_epoch, cfg.epochs))
     return TrainResult(
         state=state,
         best_metric=best_loss,
@@ -518,126 +582,162 @@ def train_classification(
     steps_total = batcher.steps_per_epoch()
     state.ensure_rates(cfg.epochs * steps_total)
 
+    # the eager path's rows of phase stamps, one a step
+    rows = None if use_fused else tracing.PhaseRows(steps_total, device,
+                                                    stamp_width(1))
+
     for epoch in range(first_epoch, cfg.epochs):
-        logger.info("-" * 10)
-        logger.info(f"epoch {epoch + 1}/{cfg.epochs}")
-        epoch_t0 = time.perf_counter()
         do_val = (epoch + 1) % cfg.val_interval == 0
         val_out = None
-        if use_fused:
-            idx, tail_idx = _epoch_rows(batcher, epoch)
-            out = classification_train_epoch(
-                state, train_ds, pos_weight, idx, tail_idx, tail_mask,
-                val_ds=val_ds if fuse_val else None, blend=cfg.blend,
-                augment=cfg.augment, with_val=fuse_val and do_val)
-            # one read-back per epoch
-            epoch_loss = out["loss"].sum().item()
-            logits_host = out["preds"].float().cpu().numpy()
-            if fuse_val and do_val:
-                val_out = {
-                    "preds": out["val_preds"].float().cpu().numpy(),
-                    "elementwise": out["val_elementwise"].cpu().numpy(),
-                    "loss": out["val_loss"].item()}
-        else:
-            step_losses, step_logits = [], []
-            for s, batch in enumerate(_epoch_batches(train_ds, batcher,
-                                                     epoch)):
-                aux = classification_train_step(
-                    state, batch["inputs"], batch["labels"], pos_weight,
-                    blend=cfg.blend, augment=cfg.augment,
-                    mask=tail_mask if s == steps_total - 1 else None,
+        with files.profile(epoch, device, _steady(state, epoch, first_epoch)), \
+                tracing.epoch(epoch) as epoch_span:
+            with tracing.span("loop.log"):
+                logger.info("-" * 10)
+                logger.info(f"epoch {epoch + 1}/{cfg.epochs}")
+            if use_fused:
+                idx, tail_idx = _epoch_rows(batcher, epoch)
+                with tracing.span("loop.dispatch"):
+                    out = classification_train_epoch(
+                        state, train_ds, pos_weight, idx, tail_idx, tail_mask,
+                        val_ds=val_ds if fuse_val else None, blend=cfg.blend,
+                        augment=cfg.augment, with_val=fuse_val and do_val)
+                # one read-back per epoch
+                with tracing.span("loop.readback"):
+                    epoch_loss = out["loss"].sum().item()
+                    logits_host = out["preds"].float().cpu().numpy()
+                    if fuse_val and do_val:
+                        val_out = {
+                            "preds": out["val_preds"].float().cpu().numpy(),
+                            "elementwise":
+                                out["val_elementwise"].cpu().numpy(),
+                            "loss": out["val_loss"].item()}
+                    tracing.stamps()
+            else:
+                with tracing.span("loop.dispatch"):
+                    step_losses, step_logits = [], []
+                    batches = _epoch_batches(train_ds, batcher, epoch)
+                    for s in range(steps_total):
+                        tail = tail_mask is not None and s == steps_total - 1
+                        with rows.at(s, "tail" if tail else "step"):
+                            batch = next(batches)
+                            tracing.mark("gather")
+                            aux = classification_train_step(
+                                state, batch["inputs"], batch["labels"],
+                                pos_weight, blend=cfg.blend,
+                                augment=cfg.augment,
+                                mask=tail_mask if tail else None)
+                        step_losses.append(aux["loss"])
+                        step_logits.append(aux["preds"])
+                    tracing.stamped(rows)
+                # one read-back per epoch
+                with tracing.span("loop.readback"):
+                    epoch_loss = torch.stack(step_losses).sum().item()
+                    logits_host = torch.stack(step_logits).float().cpu() \
+                        .numpy()
+                    tracing.stamps()
+
+            with tracing.span("loop.train_metrics"):
+                flat_order = batcher.epoch_indices(epoch).reshape(-1)
+                if cfg.blend:  # (S, K, B, C) -> (K, S * B, C)
+                    s, k, b, c = logits_host.shape
+                    tr_logits = logits_host.transpose(1, 0, 2, 3).reshape(
+                        k, s * b, c)
+                else:
+                    s, b, c = logits_host.shape
+                    tr_logits = logits_host.reshape(s * b, c)
+                tr_logits = _dedup_epoch(tr_logits, n_unique, cfg.blend)
+                tr_labels = host_labels[flat_order[:n_unique]]
+                *_, f1s = thresholded_f1s(
+                    tr_logits[0] if cfg.blend else tr_logits, tr_labels)
+                train_f1s.append(float(np.nanmean(f1s)))
+            epoch_dt = epoch_span.elapsed_s()
+            epoch_loss = epoch_loss / train_ds.num_samples
+            train_losses.append(epoch_loss)
+            with tracing.span("loop.log"):
+                logger.info(
+                    f"epoch {epoch + 1} average loss: {epoch_loss:.4f} "
+                    f"({train_ds.num_samples / max(epoch_dt, 1e-9):.1f} "
+                    "samples/s)"
                 )
-                step_losses.append(aux["loss"])
-                step_logits.append(aux["preds"])
-            # one read-back per epoch
-            epoch_loss = torch.stack(step_losses).sum().item()
-            logits_host = torch.stack(step_logits).float().cpu().numpy()
 
-        flat_order = batcher.epoch_indices(epoch).reshape(-1)
-        if cfg.blend:  # (S, K, B, C) -> (K, S * B, C)
-            s, k, b, c = logits_host.shape
-            tr_logits = logits_host.transpose(1, 0, 2, 3).reshape(k, s * b, c)
-        else:
-            s, b, c = logits_host.shape
-            tr_logits = logits_host.reshape(s * b, c)
-        tr_logits = _dedup_epoch(tr_logits, n_unique, cfg.blend)
-        tr_labels = host_labels[flat_order[:n_unique]]
-        *_, f1s = thresholded_f1s(tr_logits[0] if cfg.blend else tr_logits,
-                                  tr_labels)
-        train_f1s.append(float(np.nanmean(f1s)))
-        epoch_dt = time.perf_counter() - epoch_t0
-        epoch_loss = epoch_loss / train_ds.num_samples
-        train_losses.append(epoch_loss)
-        logger.info(
-            f"epoch {epoch + 1} average loss: {epoch_loss:.4f} "
-            f"({train_ds.num_samples / max(epoch_dt, 1e-9):.1f} samples/s)"
-        )
+            mean_f1 = -1.0
+            if do_val:
+                with tracing.span("loop.validation"):
+                    out = val_out if val_out is not None else \
+                        classification_eval_split(state, val_ds, pos_weight,
+                                                  blend=cfg.blend,
+                                                  chunk=cfg.eval_chunk)
+                    val_logits, val_logits_epoch = out["preds"], epoch
+                    _, pred_lbl, f1s = thresholded_f1s(
+                        val_logits[0] if cfg.blend else val_logits,
+                        val_labels)
+                    tracker.update(pred_lbl, val_labels, out["elementwise"])
+                    val_loss = float(out["elementwise"].sum()) \
+                        / val_ds.num_samples
+                    val_losses.append(val_loss)
+                    mean_f1 = float(np.nanmean(f1s))
+                    val_f1s.append(mean_f1)
+                improved = mean_f1 > best_metric
+                if improved:
+                    best_metric, best_f1s, best_epoch = mean_f1, f1s, epoch + 1
+                    with tracing.span("loop.best_save"):
+                        files.best(state.model)
+                with tracing.span("loop.log"):
+                    logger.info(f"Validation loss: {val_loss}")
+                    if improved:
+                        logger.info("saved new best metric model")
+                    logger.info(
+                        f"current epoch: {epoch + 1} current f1: "
+                        f"{mean_f1:.4f} best f1: {best_metric:.4f} at epoch: "
+                        f"{best_epoch}"
+                    )
+                    files.log(
+                        kind="classification_epoch",
+                        epoch=epoch + 1,
+                        train_loss=epoch_loss,
+                        val_loss=val_loss,
+                        train_f1=train_f1s[-1],
+                        val_f1=mean_f1,
+                        epoch_seconds=epoch_dt,
+                        samples_per_sec=train_ds.num_samples / max(epoch_dt,
+                                                                   1e-9),
+                    )
 
-        mean_f1 = -1.0
-        if do_val:
-            out = val_out if val_out is not None else \
-                classification_eval_split(state, val_ds, pos_weight,
-                                          blend=cfg.blend,
-                                          chunk=cfg.eval_chunk)
-            val_logits, val_logits_epoch = out["preds"], epoch
-            _, pred_lbl, f1s = thresholded_f1s(
-                val_logits[0] if cfg.blend else val_logits, val_labels)
-            tracker.update(pred_lbl, val_labels, out["elementwise"])
-            val_loss = float(out["elementwise"].sum()) / val_ds.num_samples
-            val_losses.append(val_loss)
-            logger.info(f"Validation loss: {val_loss}")
-            mean_f1 = float(np.nanmean(f1s))
-            val_f1s.append(mean_f1)
-            if mean_f1 > best_metric:
-                best_metric, best_f1s, best_epoch = mean_f1, f1s, epoch + 1
-                files.best(state.model)
-                logger.info("saved new best metric model")
-            logger.info(
-                f"current epoch: {epoch + 1} current f1: {mean_f1:.4f}"
-                f" best f1: {best_metric:.4f} at epoch: {best_epoch}"
-            )
-            files.log(
-                kind="classification_epoch",
-                epoch=epoch + 1,
-                train_loss=epoch_loss,
-                val_loss=val_loss,
-                train_f1=train_f1s[-1],
-                val_f1=mean_f1,
-                epoch_seconds=epoch_dt,
-                samples_per_sec=train_ds.num_samples / max(epoch_dt, 1e-9),
-            )
+            if cfg.blend and (epoch + 1) % cfg.blend_update_interval == 0:
+                with tracing.span("loop.blend_update"):
+                    # raw logits for both, as the JAX loop (the reference
+                    # feeds probabilities and 0/1 predictions through
+                    # BCE-with-logits)
+                    logger.info("Updating gradient blender weights")
+                    if val_logits is None or val_logits_epoch != epoch:
+                        val_logits = classification_eval_split(
+                            state, val_ds, pos_weight, blend=cfg.blend,
+                            chunk=cfg.eval_chunk)["preds"]
+                        val_logits_epoch = epoch
+                    tr_head = blending.class_head_losses(
+                        _on_device(tr_logits, device),
+                        _on_device(tr_labels, device), pos_weight)
+                    va_head = blending.class_head_losses(
+                        _on_device(val_logits, device),
+                        _on_device(val_labels, device), pos_weight)
+                    blending.assign_blend(state.blend, blending.blend_update(
+                        state.blend, tr_head, va_head, False))
+                    blend_history.append(state.blend.weights.cpu().tolist())
+                    logger.info(f"new weights : {blend_history[-1]}")
 
-        if cfg.blend and (epoch + 1) % cfg.blend_update_interval == 0:
-            # raw logits for both, as the JAX loop (the reference feeds
-            # probabilities and 0/1 predictions through BCE-with-logits)
-            logger.info("Updating gradient blender weights")
-            if val_logits is None or val_logits_epoch != epoch:
-                val_logits = classification_eval_split(
-                    state, val_ds, pos_weight, blend=cfg.blend,
-                    chunk=cfg.eval_chunk)["preds"]
-                val_logits_epoch = epoch
-            tr_head = blending.class_head_losses(
-                _on_device(tr_logits, device), _on_device(tr_labels, device),
-                pos_weight)
-            va_head = blending.class_head_losses(
-                _on_device(val_logits, device), _on_device(val_labels, device),
-                pos_weight)
-            blending.assign_blend(state.blend, blending.blend_update(
-                state.blend, tr_head, va_head, False))
-            blend_history.append(state.blend.weights.cpu().tolist())
-            logger.info(f"new weights : {blend_history[-1]}")
-
-        state.epoch += 1
-        files.checkpoint(epoch + 1, state, {
-            "selection_metric": mean_f1 if np.isfinite(mean_f1) else -1.0,
-            "best_metric": best_metric, "best_epoch": best_epoch,
-            "best_f1s": best_f1s, "history": history})
+            with tracing.span("loop.checkpoint"):
+                state.epoch += 1
+                files.checkpoint(epoch + 1, state, {
+                    "selection_metric": (mean_f1 if np.isfinite(mean_f1)
+                                         else -1.0),
+                    "best_metric": best_metric, "best_epoch": best_epoch,
+                    "best_f1s": best_f1s, "history": history})
 
     files.save_curves((train_losses, val_losses), (train_f1s, val_f1s),
                       save_f1_curves, blend_history if cfg.blend else None,
                       tracker)
     files.final(state.model)
-    files.close()
+    files.close(range(first_epoch, cfg.epochs))
     return TrainResult(
         state=state,
         best_metric=best_metric,

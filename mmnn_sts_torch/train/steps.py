@@ -39,6 +39,16 @@ gradients over the step's ranks before the one optimizer update. The
 eval steps forward this rank's rows of the split (a padded last block)
 and gather the predictions in order; over ``space`` they are the same on
 every rank.
+
+The train bodies mark the ends of their phases for the device phase
+stamps (``utils/tracing.mark``; nothing outside a ``Stamper``):
+``optimizer`` after the gradients are zeroed, then per microbatch
+``augment`` (the image transform), ``forward`` (the model, the output
+gather and the loss) and ``backward``, under a mesh ``collective`` (the
+gradient sum), and ``optimizer`` again after the update: with the
+caller's first stamp and its ``gather``, ``stamp_width`` stamps at most. The
+epoch functions note the rows they stamped for the loop's next
+``tracing.stamps()``.
 """
 
 from __future__ import annotations
@@ -51,6 +61,7 @@ from ..ops.blending import blended_class_loss, blended_surv_loss
 from ..ops.cox import multi_cox_loss
 from ..ops.losses import bce_with_logits
 from ..parallel import mesh
+from ..utils import tracing
 from .graphs import epoch_steps, forward_graph
 from .state import TrainState
 
@@ -151,6 +162,13 @@ def _survival_loss(blend_state, out, events, durations, blend, ties,
     return loss, loss
 
 
+def stamp_width(microbatches: int) -> int:
+    """The most stamps a train body of ``microbatches`` writes into its row:
+    the first, ``gather``, ``optimizer`` twice, ``collective`` and three a
+    microbatch."""
+    return 5 + 3 * microbatches
+
+
 def _superstep_body(state, blend_state, inputs, events, durations,
                     generator, blend, augment, ties, mask):
     """The superstep's device work: gradients zeroed in place, the
@@ -158,6 +176,7 @@ def _superstep_body(state, blend_state, inputs, events, durations,
     counter. ``state.step`` is the caller's."""
     model = state.model.train()
     state.zero_gradients()
+    tracing.mark("optimizer")
     shard = mesh.step_shard(state.mesh, events.shape[1],
                             image_of(_microbatch(inputs, 0)))
     loss_sum = torch.zeros((), device=events.device)
@@ -167,17 +186,22 @@ def _superstep_body(state, blend_state, inputs, events, durations,
         with mesh.sharded(shard):
             mb_inputs = _transform_inputs(_rows(shard, _microbatch(inputs, i)),
                                           generator if augment else None)
+            tracing.mark("augment")
             out = _gathered(shard, model(
                 mb_inputs, sample_mask=_rows(shard, mb_mask),
                 generator=generator), blend)
             loss, _ = _survival_loss(blend_state, out, events[i],
                                      durations[i], blend, ties, mb_mask)
+            tracing.mark("forward")
             _backward(shard, loss)
         loss_sum += loss.detach()
         outs.append(out.detach())
+        tracing.mark("backward")
     if shard is not None:
         shard.sum_gradients(state.gradients())
+        tracing.mark("collective")
     state.device_update()
+    tracing.mark("optimizer")
     return {"loss": loss_sum, "preds": torch.stack(outs)}
 
 
@@ -248,18 +272,24 @@ def _classification_body(state, blend_state, inputs, labels, pos_weight,
     generator = state.generator
     model = state.model.train()
     state.zero_gradients()
+    tracing.mark("optimizer")
     shard = mesh.step_shard(state.mesh, labels.shape[0], image_of(inputs))
     with mesh.sharded(shard):
         local = _transform_inputs(_rows(shard, inputs),
                                   generator if augment else None)
+        tracing.mark("augment")
         out = _gathered(shard, model(local, sample_mask=_rows(shard, mask),
                                      generator=generator), blend)
         loss = _classification_loss(blend_state, out, labels, pos_weight,
                                     blend, mask)
+        tracing.mark("forward")
         _backward(shard, loss)
+    tracing.mark("backward")
     if shard is not None:
         shard.sum_gradients(state.gradients())
+        tracing.mark("collective")
     state.device_update()
+    tracing.mark("optimizer")
     return {"loss": loss.detach(), "preds": out.detach()}
 
 
@@ -315,7 +345,8 @@ def _run_epoch(state, ds, idx, tail_idx, tail_mask, names, body, flags):
     """The steps of one epoch through the step bodies of ``body``
     (``graphs.EpochSteps``): a full step a row of ``idx``, then the masked
     tail. Returns the epoch's ``loss`` and ``preds`` (one row a step, the
-    tail's last)."""
+    tail's last); its rows of phase stamps are noted for the next
+    ``tracing.stamps()``."""
     rows = [("step", i, None) for i in idx]
     if tail_idx is not None:
         rows.append(("tail", tail_idx, tail_mask))
@@ -323,12 +354,15 @@ def _run_epoch(state, ds, idx, tail_idx, tail_mask, names, body, flags):
         raise ValueError("an epoch needs at least one step")
     shape = tuple(np.shape(rows[0][1]))
     state.ensure_rates(state.step + len(rows))
+    # a survival superstep's rows are (A, B), a classification step's (B,)
+    width = stamp_width(shape[0] if len(shape) > 1 else 1)
     epoch = epoch_steps(state, (id(ds), shape, len(rows)) + flags, ds, names,
-                        shape, len(rows), body)
+                        shape, len(rows), body, width)
     for slot, (kind, step_idx, mask) in enumerate(rows):
         state.begin_step()
         out = epoch.run(kind, step_idx, slot, mask)
         state.step += 1
+    tracing.stamped(epoch.rows)
     return {"loss": out["loss"].clone(), "preds": out["preds"].clone()}
 
 
@@ -338,7 +372,9 @@ def _forward(state, key, forward, ds, names):
         return ((list(inputs.values()) if isinstance(inputs, dict)
                  else [inputs]) + [getattr(ds, n) for n in names])
 
-    out = forward_graph(state, key, forward, reads).run()
+    graph = forward_graph(state, key, forward, reads)
+    out = graph.run()
+    tracing.stamped(graph.rows)
     return {k: v.clone() for k, v in out.items()}
 
 

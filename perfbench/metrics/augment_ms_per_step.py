@@ -1,0 +1,10 @@
+"""Device ms a superstep of the augmentation (the image transform of each
+microbatch): the program's device phase stamps inside the captured step,
+the mean over the window's full supersteps of the stamped ``augment``
+intervals (``perfbench.spans``)."""
+
+from perfbench import spans
+
+
+def read(run, cell):
+    return spans.phase_ms_per_step(run, cell, "augment")

@@ -406,4 +406,5 @@ def test_make_mesh_covers_the_world_and_fused_epoch_needs_nccl_on_a_card(
         mesh = world_of_one
 
     with pytest.raises(ConfigurationError, match="gloo"):
-        graphs.epoch_steps(OnACard, "key", None, (), (A, B), 1, None)
+        graphs.epoch_steps(OnACard, "key", None, (), (A, B), 1, None,
+                           5 + 3 * A)
