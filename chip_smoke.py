@@ -251,7 +251,9 @@ Phases; any failure is an uncaught exception and a nonzero exit:
    8 at 64^3 with TF32 off and cuDNN deterministic: (a) one rank over NCCL
    in this process (a FileStore), eager and graphed (survival_train_epoch:
    warm-up, capture and replay, replay), each bit-equal to the run without
-   a process group in every tensor of the state; the collectives a
+   a process group in every tensor of the state (that run, and the
+   one-process runs (b) is held against, on the plain BatchNorm path, as
+   a mesh's ranks take it: ops/batch_norm.plain_only); the collectives a
    superstep and the capture's launches (464); (b) two ranks sharing the
    card over gloo (this script with --mesh-rank, spawned twice; gloo
    stages CUDA tensors through the host, checked with all_gather,
@@ -307,7 +309,26 @@ Phases; any failure is an uncaught exception and a nonzero exit:
    the replay writes row slot[0], cells 0..27, nondecreasing, and nothing
    else; the stamped span (last stamp - first) within 1 % of the events'
    time. Prints the phases of the last replay.
-23. Prints the kernels' JSON line, the card's line, and last
+23. BatchNorm (ops/batch_norm.py, kernels/csrc/batch_norm.cu): (a) the
+   BatchNorm calls of one DenseNet121 microbatch (8 x 64^3: norm0, the
+   58 bottleneck statistics and 58 norm2, the transitions, norm5) and
+   the clinical MLP's six, in float32 and bfloat16, forward and backward
+   once eagerly: 2 launches a bottleneck's statistics and 4 a layer (392),
+   no plain call; then captured in one CUDA graph, forward alone and
+   forward with backward, each replay timed with CUDA events behind a
+   sleep (median of 5), the kernels against the plain path (the same
+   calls inside ops/batch_norm.plain_only) and the least bytes the
+   kernels can move at 3.35 TB/s. (b) Every one of those calls, in both
+   dtypes, unmasked and with the last 3 of 8 samples masked, on the
+   kernels and on the plain path against the same call in float64
+   (tests/bn_witness.py; each path's backward under its own ReLU mask):
+   the output or the folded a, b, the gradients of x, weight and bias,
+   and the running statistics each within 3 x the plain path's error +
+   1e-5 x the float64 values' largest magnitude (dx under a ReLU away
+   from its 0). (c) The flagship superstep graphed through
+   survival_train_epoch in both dtypes: 8 x 392 launches at the warm-up
+   and at the capture each, no plain call.
+24. Prints the kernels' JSON line, the card's line, and last
    {"ok": true, "device": {...}}.
 
 ``--phases a,b`` runs only the named phases and the phases they need
@@ -320,6 +341,7 @@ backward's to chiprun_out/chip_smoke_backward.jsonl.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import functools
 import io
@@ -3561,6 +3583,306 @@ def stamp_phase(fd, seed: int) -> dict:
     return results
 
 
+def bn_inventory(batch: int = TRAIN_BATCH, side: int = CLI_SIDE) -> list:
+    """(kind, shape (N, C, *spatial), relu) of the BatchNorm calls of one
+    DenseNet121 microbatch's forward in call order (norm0, each dense
+    layer's bottleneck statistics and norm2, the transitions, norm5), then
+    the clinical MLP's six: kind "fold" (``ops/batch_norm.bottleneck_fold``)
+    or "norm" (a ``BatchNorm`` layer, the ReLU fused where ``relu``)."""
+    calls = [("norm", (batch, 64) + (side // 2,) * 3, True)]
+    ch, s = 64, side // 4
+    for i, layers in enumerate((6, 12, 24, 16)):
+        for j in range(layers):
+            calls += [("fold", (batch, ch + 32 * j) + (s,) * 3, False),
+                      ("norm", (batch, BOTTLENECK_OUT) + (s,) * 3, True)]
+        ch += 32 * layers
+        calls.append(("norm", (batch, ch) + (s,) * 3, i < 3))
+        ch, s = ch // 2, s // 2
+    return calls + [("norm", (batch, w), False)
+                    for w in (32, 16, 8, 8, 8, 12)]
+
+
+def bn_bytes(calls: list, size: int) -> tuple[int, int]:
+    """The least bytes the BatchNorm kernels move for ``calls`` (forward,
+    backward), each operand read once a pass and each output written
+    once: a layer's statistics read x, its normalise x and writes y, its
+    backward sums g and x, its dx g and x and writes dx (a ReLU's mask
+    follows from x and the fold, so y need not be read; the kernels read
+    it, 2 more of a layer's bytes under a ReLU); a bottleneck's statistics
+    x, their dx x and dx."""
+    fwd = bwd = 0
+    for kind, shape, _ in calls:
+        n = int(np.prod(shape)) * size
+        if kind == "fold":
+            fwd, bwd = fwd + n, bwd + 2 * n
+        else:
+            fwd, bwd = fwd + 3 * n, bwd + 5 * n
+    return fwd, bwd
+
+
+BN_KERNELS = ("bn_stats_kernel", "bn_normalize_kernel",
+              "bn_backward_sums_kernel", "bn_backward_dx_kernel")
+
+
+def batch_norm_check(inventory: list, dt, seed: int) -> dict:
+    """Each call of ``inventory`` in ``dt``, unmasked and with the last 3
+    samples masked, on the kernels and on the plain path against the same
+    call in float64 (tests/bn_witness.py; random parameters and running
+    statistics; each path's backward under its own ReLU mask): every value
+    within its limit (3 x the plain path's error + 1e-5 x the float64
+    values' largest magnitude). Returns the kernels' largest error and the
+    largest share of a limit; raises past one."""
+    from mmnn_sts_torch.models import common
+    from mmnn_sts_torch.models.densenet import FusedBottleneck
+    from mmnn_sts_torch.ops import batch_norm
+
+    if str(REPO / "tests") not in sys.path:  # not a package: by its path
+        sys.path.insert(0, str(REPO / "tests"))
+    import bn_witness as bw
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2323)
+    worst = {"max_abs_err": 0.0, "max_share_of_limit": 0.0, "at": None}
+    for masked in (False, True):
+        for i, (kind, shape, relu) in enumerate(inventory):
+            fmt = {5: torch.channels_last_3d}.get(len(shape),
+                                                  torch.contiguous_format)
+            x = (3.0 + 2.0 * torch.randn(shape, device="cuda", generator=gen)
+                 ).to(dt).contiguous(memory_format=fmt)
+            mask = (torch.tensor([1.0] * (shape[0] - 3) + [0.0] * 3,
+                                 device="cuda") if masked else None)
+            if kind == "fold":
+                module = FusedBottleneck(shape[1], BOTTLENECK_OUT, dt)
+                ra, rb = (torch.randn(shape[1], device="cuda", generator=gen)
+                          for _ in range(2))
+                args, names = (x, ra, rb, mask), bw.FOLD_VALUES
+                run = bw.run_fold
+            else:
+                module = common.BatchNorm(shape[1], dt)
+                up = (torch.randn(shape, device="cuda", generator=gen)
+                      .to(dt).contiguous(memory_format=fmt))
+                args, names = (x, up, mask, relu), bw.BN_VALUES
+                run = bw.run_bn
+            module = module.cuda().train()
+            bw.randomise(module, seed + i)
+            kernel = run(copy.deepcopy(module), *args)
+            with batch_norm.plain_only():
+                plain = run(copy.deepcopy(module), *args)
+            if kind == "fold":
+                def witness(out):
+                    return bw.exact_fold(module, *args)
+            else:
+                def witness(out):  # under the path's own ReLU mask
+                    return bw.exact_bn(module, *args,
+                                       passed=out[0] > 0 if relu else None)
+            for name, err, limit in bw.errors(kernel, plain, witness, names,
+                                              relu):
+                share = err / limit if limit > 0 else (0.0 if err == 0
+                                                       else np.inf)
+                at = f"{name} {kind} {shape} masked={masked}"
+                if not share <= 1.0:
+                    raise AssertionError(
+                        f"batch_norm {dt}: {at}: kernels' error {err:.3e} "
+                        f"past its limit {limit:.3e} (float64 witness)")
+                worst["max_abs_err"] = max(worst["max_abs_err"], err)
+                if share > worst["max_share_of_limit"]:
+                    worst["max_share_of_limit"], worst["at"] = share, at
+    return worst
+
+
+def batch_norm_phase(fd, seed: int) -> dict:
+    """The BatchNorm kernels on the card (see the module docstring, phase
+    23): one DenseNet121 microbatch's BatchNorm calls timed, kernels
+    against the plain path, each call's values held to float64, then the
+    flagship superstep's launches at its capture."""
+    import gc
+
+    from mmnn_sts_torch.config import Config
+    from mmnn_sts_torch.convert import load_jax_npz, to_jax_flat
+    from mmnn_sts_torch.data.loader import DeviceDataset
+    from mmnn_sts_torch.infer.export import model_spec
+    from mmnn_sts_torch.models import build_model
+    from mmnn_sts_torch.models import common
+    from mmnn_sts_torch.models.densenet import FusedBottleneck
+    from mmnn_sts_torch.ops import batch_norm
+    from mmnn_sts_torch.train.schedule import make_optimizer
+    from mmnn_sts_torch.train.state import create_train_state
+    from mmnn_sts_torch.train.steps import survival_train_epoch
+
+    inventory = bn_inventory()
+    results = {}
+    gen = torch.Generator(device="cuda").manual_seed(seed + 23)
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        calls = []
+        for kind, shape, relu in inventory:
+            fmt = {5: torch.channels_last_3d}.get(len(shape),
+                                                  torch.contiguous_format)
+            x = (3.0 + 2.0 * torch.randn(shape, device="cuda", generator=gen)
+                 ).to(dt).contiguous(memory_format=fmt).requires_grad_()
+            c = shape[1]
+            if kind == "fold":
+                module = FusedBottleneck(c, BOTTLENECK_OUT, dt)
+                up = tuple(torch.randn(c, device="cuda", generator=gen)
+                           for _ in range(2))
+            else:
+                module = common.BatchNorm(c, dt)
+                up = (torch.randn(shape, device="cuda", generator=gen)
+                      .to(dt).contiguous(memory_format=fmt),)
+            calls.append((kind, module.cuda().train(), x, up, relu))
+
+        def step(backward: bool):
+            outs, grads = [], []
+            for kind, module, x, up, relu in calls:
+                out = (module.fold(x) if kind == "fold"
+                       else (module(x, relu=relu),))
+                outs += out
+                grads += up
+            if backward:
+                torch.autograd.backward(outs, grads)
+
+        def graphed_ms(backward: bool) -> float:
+            for _, module, x, _, _ in calls:
+                x.grad = None
+                module.zero_grad(set_to_none=True)
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                step(backward)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=side):
+                step(backward)
+            graph.replay()
+            times = []
+            for _ in range(MEASURED_ROUNDS):
+                start, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(2))
+                torch.cuda.synchronize()
+                torch.cuda._sleep(SLEEP_CYCLES)
+                start.record()
+                graph.replay()
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+            del graph
+            return float(np.median(times))
+
+        counts = batch_norm.launches, batch_norm.plain_calls
+        step(True)
+        torch.cuda.synchronize()
+        launches = batch_norm.launches - counts[0]
+        plain_calls = batch_norm.plain_calls - counts[1]
+        folds = sum(k == "fold" for k, _, _ in inventory)
+        want = 2 * folds + 4 * (len(inventory) - folds)
+        if (launches, plain_calls) != (want, 0):
+            raise AssertionError(f"batch_norm {dtype}: {launches} launches "
+                                 f"and {plain_calls} plain calls for one "
+                                 f"microbatch's forward and backward, not "
+                                 f"{want} and 0")
+        # device time a launch of each kernel, from one eager step's trace
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step(True)
+            torch.cuda.synchronize()
+        per_kernel = {}
+        for e in prof.key_averages():
+            kind = next((k for k in BN_KERNELS if k in e.key), None)
+            if kind and e.device_type == torch.autograd.DeviceType.CUDA:
+                n, us = per_kernel.get(kind, (0, 0.0))
+                per_kernel[kind] = (n + e.count, us + e.device_time_total)
+        ms = {}
+        for path, ctx in (("kernels", contextlib.nullcontext()),
+                          ("plain", batch_norm.plain_only())):
+            with ctx:
+                forward = graphed_ms(False)
+                ms[path] = (forward, graphed_ms(True) - forward)
+        fwd_bytes, bwd_bytes = bn_bytes(inventory, 2 if dtype == "bfloat16"
+                                        else 4)
+        bound = (fwd_bytes / HBM_BYTES_PER_S * 1e3,
+                 bwd_bytes / HBM_BYTES_PER_S * 1e3)
+        results[dtype] = {
+            "launches": launches, "ms": sum(ms["kernels"]),
+            "forward_ms": ms["kernels"][0], "backward_ms": ms["kernels"][1],
+            "plain_ms": sum(ms["plain"]), "plain_forward_ms": ms["plain"][0],
+            "plain_backward_ms": ms["plain"][1], "bound_ms": sum(bound),
+            "bound_forward_ms": bound[0], "bound_backward_ms": bound[1],
+            "us_a_launch": {k: us / n for k, (n, us) in per_kernel.items()}}
+        print(f"batch_norm {dtype}: one DenseNet121 microbatch's "
+              f"{len(inventory) - folds} BatchNorm layers and {folds} "
+              f"bottleneck statistics ({TRAIN_BATCH} x {CLI_SIDE}^3, with "
+              f"the MLP's 6), forward and backward in one CUDA graph: "
+              f"{launches} launches; kernels {ms['kernels'][0]:.3f} + "
+              f"{ms['kernels'][1]:.3f} ms, plain path {ms['plain'][0]:.3f} "
+              f"+ {ms['plain'][1]:.3f} ms, bytes bound {bound[0]:.3f} + "
+              f"{bound[1]:.3f} ms (forward + backward, median of "
+              f"{MEASURED_ROUNDS} replays); device us a launch (eager, "
+              f"profiled): " + ", ".join(
+                  f"{k} {n} x {us / n:.2f}" for k, (n, us) in
+                  per_kernel.items()))
+        del calls
+        gc.collect()
+        torch.cuda.empty_cache()
+        check = batch_norm_check(inventory, dt, seed)
+        results[dtype].update(check)
+        print(f"batch_norm {dtype}: the {len(inventory)} calls unmasked and "
+              f"with 3 of {TRAIN_BATCH} samples masked, kernels and plain "
+              f"path against float64: the kernels' largest error "
+              f"{check['max_abs_err']:.3e}, at most "
+              f"{check['max_share_of_limit']:.1%} of its limit "
+              f"({check['at']}; 3 x the plain path's error + 1e-5 x the "
+              f"largest magnitude)")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the flagship superstep graphed: launches at the warm-up and the
+    # capture, no plain call
+    flags = dict(images=True, preop=True, postop=False, blend=True)
+    base = Config()
+    base.image_model.name = CLI_MODEL
+    base.image_model.spatial_size = [CLI_SIDE] * 3
+    spec = model_spec(base, **flags)
+    weights = random_flat_weights(build_model(base, **flags), seed,
+                                  to_jax_flat)
+    rng = np.random.default_rng(seed + 23)
+    inputs, events, durations = synthetic_split(rng, (FUSED_SPLIT,), spec,
+                                                CLI_DEVICE)
+    ds = DeviceDataset(uids=np.arange(FUSED_SPLIT), inputs=inputs,
+                       events=events, durations=durations)
+    idx = rng.permutation(FUSED_SPLIT)[:2 * TRAIN_MICRO * TRAIN_BATCH] \
+        .reshape(2, TRAIN_MICRO, TRAIN_BATCH)
+    for dtype in ("float32", "bfloat16"):
+        cfg = copy.deepcopy(base)
+        cfg.tpu.compute_dtype = dtype
+        model = build_model(cfg, **flags)
+        load_jax_npz(model, weights)
+        model.to(CLI_DEVICE)
+        state = create_train_state(model, *make_optimizer(
+            model.parameters(), TRAIN_LR, 2, 1), seed=seed)
+        state.ensure_rates(2)
+        counts = batch_norm.launches, batch_norm.plain_calls
+        survival_train_epoch(state, ds, idx, blend=True, augment=True)
+        torch.cuda.synchronize()
+        per_capture = (batch_norm.launches - counts[0]) // 2
+        plain_calls = batch_norm.plain_calls - counts[1]
+        if plain_calls or per_capture != TRAIN_MICRO * results[dtype][
+                "launches"]:
+            raise AssertionError(
+                f"batch_norm {dtype}: the flagship superstep launched "
+                f"{per_capture} a capture ({TRAIN_MICRO} x "
+                f"{results[dtype]['launches']} expected) with "
+                f"{plain_calls} plain calls")
+        results[dtype]["launches_per_capture"] = per_capture
+        print(f"batch_norm {dtype}: the flagship superstep ({TRAIN_MICRO} x "
+              f"{TRAIN_BATCH} at {CLI_SIDE}^3) graphed: {per_capture} "
+              f"launches at its capture ({per_capture // TRAIN_MICRO} a "
+              f"microbatch), {plain_calls} plain calls")
+        del state, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return results
+
+
 def rows_diff(got: list, want: list, keys) -> float:
     """The largest |got - want| / max(1, |want|) over ``keys`` of two runs'
     metrics.jsonl rows (inf where their epochs differ)."""
@@ -4351,13 +4673,17 @@ def mesh_one_rank(fd, cfg, flags, weights, ds, idx, seed, workdir,
     Returns its results (with the run without a process group's peak
     memory above ``base``, the bytes allocated before its phase's split,
     and ``base``) and that run."""
+    from mmnn_sts_torch.ops import batch_norm
     from mmnn_sts_torch.parallel import mesh
     from mmnn_sts_torch.train import graphs
 
     alone = mesh_state(cfg, flags, weights, seed)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    want = mesh_supersteps(alone, ds, idx, MESH_STEPS, False)
+    # a mesh's ranks take the plain BatchNorm path: so does what they are
+    # held against
+    with batch_norm.plain_only():
+        want = mesh_supersteps(alone, ds, idx, MESH_STEPS, False)
     results = {"alone_peak_bytes": torch.cuda.max_memory_allocated() - base,
                "alone_base_bytes": base}
     del alone
@@ -4451,13 +4777,16 @@ def one_ulp_control(cfg, flags, weights, ds, idx, seed):
     and the parameters before it, on the host; computed once a seed, as
     mesh_phase's and space_phase's (b) hold their ranks against the same
     control."""
+    from mmnn_sts_torch.ops import batch_norm
+
     if seed not in _controls:
         scaled = copy.copy(ds)
         scaled.inputs = {**ds.inputs, "image": ds.inputs["image"]
                          * (1 + 2**-22)}
-        control = mesh_host(mesh_supersteps(
-            mesh_state(cfg, flags, weights, seed), scaled, idx,
-            MESH_RANK_STEPS, False))
+        with batch_norm.plain_only():  # as a mesh's ranks take it
+            control = mesh_host(mesh_supersteps(
+                mesh_state(cfg, flags, weights, seed), scaled, idx,
+                MESH_RANK_STEPS, False))
         before = {k: v.detach().float().cpu().numpy() for k, v in
                   state_tensors(mesh_state(cfg, flags, weights, seed),
                                 torch.zeros(1), torch.zeros(1)).items()
@@ -4914,6 +5243,7 @@ PHASES = {
     "fused_epoch_phase": (),
     "planar_phase": (),
     "stamp_phase": (),
+    "batch_norm_phase": (),
     "cli_phase": (),
     "infer_phase": ("cli_phase",),
     "fused_cli_phase": ("cli_phase", "infer_phase"),
@@ -5026,6 +5356,7 @@ def main(argv=None) -> int:
         "fused_epoch_phase": lambda: fused_epoch_phase(fd, args.seed),
         "planar_phase": lambda: planar_phase(fd, args.seed),
         "stamp_phase": lambda: stamp_phase(fd, args.seed),
+        "batch_norm_phase": lambda: batch_norm_phase(fd, args.seed),
     }
     for phase in PHASES:
         if phase == "serve_phase" and phase in run:
@@ -5062,7 +5393,7 @@ def main(argv=None) -> int:
 
 
 def kernels_line(res: dict) -> list:
-    """The three kernels' entries from the phases that ran (None where the
+    """The kernels' entries from the phases that ran (None where the
     phase that measures a number did not run)."""
     def get(phase, *keys):
         value = res.get(phase)
@@ -5275,7 +5606,29 @@ def kernels_line(res: dict) -> list:
              for d in ("float32", "bfloat16")), default=None)
         if "stamp_phase" in res else None,
     }
-    return [entry, bf16_entry, stamp_entry]
+    # the BatchNorm kernels: one DenseNet121 microbatch's calls, forward
+    # and backward (bf16; the fp32 figures in the phase's lines)
+    bn_entry = {
+        "name": "batch_norm",
+        "route": "cuda",
+        "source": "mmnn_sts_torch/kernels/csrc/batch_norm.cu",
+        "replaces": None,  # no TPU kernel: XLA fuses BatchNorm there
+        "launches": get("batch_norm_phase", "bfloat16", "launches"),
+        # against float64, both dtypes
+        "max_abs_err": max((get("batch_norm_phase", d, "max_abs_err")
+                            for d in ("float32", "bfloat16")), default=None)
+        if "batch_norm_phase" in res else None,
+        "ms": get("batch_norm_phase", "bfloat16", "ms"),
+        "plain_ms": get("batch_norm_phase", "bfloat16", "plain_ms"),
+        "bound_ms": get("batch_norm_phase", "bfloat16", "bound_ms"),
+        "bound_by": "bytes" if "batch_norm_phase" in res else None,
+        "library_ms": None,
+        "float32_ms": get("batch_norm_phase", "float32", "ms"),
+        "float32_plain_ms": get("batch_norm_phase", "float32", "plain_ms"),
+        "launches_per_capture_superstep": get(
+            "batch_norm_phase", "bfloat16", "launches_per_capture"),
+    }
+    return [entry, bf16_entry, stamp_entry, bn_entry]
 
 
 if __name__ == "__main__":

@@ -43,6 +43,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..ops import batch_norm
 from ..parallel import mesh
 
 CHANNELS_LAST = torch.channels_last_3d
@@ -147,6 +148,11 @@ _recomputing = threading.local()
 _draws = threading.local()
 
 
+def recomputing() -> bool:
+    """Whether this thread runs a ``remat_call`` recompute."""
+    return getattr(_recomputing, "on", False)
+
+
 def dropout_uniforms(shape, generator, device,
                      planes: torch.Tensor | None = None) -> torch.Tensor:
     """``torch.rand(shape)`` from ``generator``: the dropout masks' draws.
@@ -183,7 +189,7 @@ def update_running_stats(running_mean, running_var, mean, unbiased,
     unbiased batch variance (torch's rule); a fully masked batch
     (``any_valid`` false) leaves both untouched, and so does a remat
     recompute."""
-    if getattr(_recomputing, "on", False):
+    if recomputing():
         return
     m = BN_MOMENTUM
     new_mean = m * running_mean + (1 - m) * mean
@@ -250,7 +256,13 @@ class BatchNorm(nn.Module):
     in float32; batch statistics in train mode (then the running-stat
     update, and masked rows of the output zeroed), running statistics in
     eval mode. The output is in ``dtype``, or in x's where that is None
-    (common.py:137, 153). Parameters and buffers carry torch's names."""
+    (common.py:137, 153). Parameters and buffers carry torch's names.
+
+    On the card a call that ``ops/batch_norm.takes_kernels`` admits (a
+    channels-last activation, no mesh shard, train mode or no autograd)
+    runs the hand-written kernels of ``ops/batch_norm`` instead of the
+    plain code (``_plain``), which stays the CPU's path and every other
+    call's."""
 
     def __init__(self, num_features: int, dtype: torch.dtype | None = None):
         super().__init__()
@@ -260,7 +272,16 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
-    def forward(self, x, sample_mask=None):
+    def forward(self, x, sample_mask=None, relu: bool = False):
+        """``relu`` applies the ReLU to the output (``F.relu``), fused into
+        the kernels' normalise on the card."""
+        return batch_norm.batch_norm(
+            x, self.weight, self.bias, self.running_mean, self.running_var,
+            sample_mask, plain=lambda: self._plain(x, sample_mask, relu),
+            training=self.training, relu=relu, dtype=self.compute_dtype,
+            update=not recomputing(), eps=BN_EPS, momentum=BN_MOMENTUM)
+
+    def _plain(self, x, sample_mask, relu: bool):
         shape = (-1,) + (1,) * (x.dim() - 2)
         if self.training:
             mean, var, unbiased, any_valid = compute_batch_stats(x, sample_mask)
@@ -273,7 +294,8 @@ class BatchNorm(nn.Module):
             + self.bias.view(shape)
         if self.training and sample_mask is not None:
             out = out * sample_mask.float().view((-1,) + (1,) * (x.dim() - 1))
-        return out.to(self.compute_dtype or x.dtype)
+        out = out.to(self.compute_dtype or x.dtype)
+        return F.relu(out) if relu else out
 
 
 class Dropout(nn.Module):

@@ -40,9 +40,11 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from ..ops.fused_dense import bn_relu_conv1x1
+from ..ops import batch_norm
+from ..ops.fused_dense import FusedBnReluMatmul, bn_relu_conv1x1
 from .common import (
     BN_EPS,
+    BN_MOMENTUM,
     BatchNorm,
     Dropout,
     avg_pool,
@@ -53,6 +55,7 @@ from .common import (
     global_avg_pool,
     kaiming_normal_,
     max_pool,
+    recomputing,
     remat_call,
     update_running_stats,
 )
@@ -71,7 +74,10 @@ class FusedBottleneck(nn.Module):
     reach the fused op in it, and so does the output. Under a mesh the
     statistics are the whole batch's (``compute_batch_stats`` sums them
     over the ranks) and the kernel runs on this rank's block: its rows
-    and, under ``space``, its depth planes (M = rows x planes x H x W)."""
+    and, under ``space``, its depth planes (M = rows x planes x H x W).
+    In train mode the statistics are folded first (``fold``; on the card
+    with no mesh one kernel, ``ops/batch_norm.bottleneck_fold``) and ``a``
+    and ``b`` go straight to the fused op."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  dtype: torch.dtype | None = None):
@@ -86,18 +92,36 @@ class FusedBottleneck(nn.Module):
 
     def forward(self, x, sample_mask=None):
         """x: (N, C, *spatial), channels-last in memory."""
-        if self.training:
-            mean, var, unbiased, any_valid = compute_batch_stats(x, sample_mask)
+        dtype = self.compute_dtype or x.dtype
+        if not self.training:
+            y = bn_relu_conv1x1(
+                x.to(dtype).movedim(1, -1), self.scale, self.bias, self.mean,
+                self.var, self.kernel.to(dtype), eps=BN_EPS,
+            )
+            return y.movedim(-1, 1)
+        a, b = self.fold(x, sample_mask)
+        h = x.to(dtype).movedim(1, -1)
+        y = FusedBnReluMatmul.apply(h.view(-1, h.shape[-1]), a, b,
+                                    self.kernel.to(dtype))
+        return y.view(*h.shape[:-1], self.kernel.shape[1]).movedim(-1, 1)
+
+    def fold(self, x, sample_mask=None):
+        """Train mode: the batch statistics of x, with the running-stat
+        update, folded into the fused op's ``a = scale * rsqrt(var + eps)``
+        and ``b = bias - mean * a`` (float32, as ``bn_relu_conv1x1`` folds
+        them); on the card one kernel where the rule admits x."""
+        def plain():
+            mean, var, unbiased, any_valid = compute_batch_stats(
+                x, sample_mask)
             update_running_stats(self.mean, self.var, mean, unbiased,
                                  any_valid)
-        else:
-            mean, var = self.mean, self.var
-        dtype = self.compute_dtype or x.dtype
-        y = bn_relu_conv1x1(
-            x.to(dtype).movedim(1, -1), self.scale, self.bias, mean,
-            var, self.kernel.to(dtype), eps=BN_EPS,
-        )
-        return y.movedim(-1, 1)
+            a = (self.scale * torch.rsqrt(var.float() + BN_EPS)).float()
+            return a, (self.bias - mean * a).float()
+
+        return batch_norm.bottleneck_fold(
+            x, self.scale, self.bias, self.mean, self.var, sample_mask,
+            plain=plain, update=not recomputing(), eps=BN_EPS,
+            momentum=BN_MOMENTUM)
 
 
 class DenseLayer(nn.Module):
@@ -115,8 +139,8 @@ class DenseLayer(nn.Module):
     def forward(self, x, sample_mask=None, generator=None, captured=None):
         """``captured``: a list that receives the 3x3(x3) convolution's
         output (before dropout), the Grad-CAM target of the last layer."""
-        y = self.conv2(F.relu(self.norm2(self.fused1(x, sample_mask),
-                                         sample_mask)))
+        y = self.conv2(self.norm2(self.fused1(x, sample_mask), sample_mask,
+                                  relu=True))
         if captured is not None:
             captured.append(y)
         y = self.dropout(y, generator)
@@ -132,7 +156,7 @@ class Transition(nn.Module):
                          spatial_dims=spatial_dims)
 
     def forward(self, x, sample_mask=None):
-        return avg_pool(self.conv(F.relu(self.norm(x, sample_mask))), 2, 2)
+        return avg_pool(self.conv(self.norm(x, sample_mask, relu=True)), 2, 2)
 
 
 class DenseNet(nn.Module):
@@ -195,7 +219,12 @@ class DenseNet(nn.Module):
         ``remat_call``."""
         last = len(self.block_config) - 1
         remat = self.remat and self.training
-        x = max_pool(F.relu(self.norm0(self.conv0(x), sample_mask)), 3, 2, 1)
+        x = self.conv0(x)
+        if x.is_cuda:
+            # the stem keeps its input's layout (the augmentation's is
+            # channels-first); the BatchNorm kernels read channels-last
+            x = channels_last(x)
+        x = max_pool(self.norm0(x, sample_mask, relu=True), 3, 2, 1)
         for i, num_layers in enumerate(self.block_config):
             # pooling may hand back another memory format; the dense block's
             # bottlenecks need channels-last, so restore it once per block

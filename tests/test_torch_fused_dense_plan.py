@@ -208,11 +208,11 @@ def test_library_path_follows_every_csrc_file(tmp_path):
 
 def test_library_path_follows_the_bf16_source(tmp_path):
     """Each dtype's kernel has its own source under csrc/ and its own
-    library (beside the device phase stamps' source), and an edit of the
-    bfloat16 source rebuilds both libraries (the key hashes every file),
-    so a stale one is never loaded."""
-    assert sorted([*fd._SOURCES.values(), "span_stamp"]) == sorted(
-        p.stem for p in build.CSRC.glob("*.cu"))
+    library (beside the device phase stamps' source and the BatchNorm
+    kernels'), and an edit of the bfloat16 source rebuilds both libraries
+    (the key hashes every file), so a stale one is never loaded."""
+    sources = [*fd._SOURCES.values(), "span_stamp", "batch_norm"]
+    assert sorted(sources) == sorted(p.stem for p in build.CSRC.glob("*.cu"))
     for name in fd._SOURCES.values():
         (tmp_path / f"{name}.cu").write_text("// v1\n")
     with mock.patch.object(build, "CSRC", tmp_path):

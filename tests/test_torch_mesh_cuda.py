@@ -7,7 +7,9 @@ is not installed: ``python -m pytest tests/test_torch_mesh_cuda.py -m cuda
 * One rank over NCCL in this process (a FileStore): two eager supersteps
   and two through ``survival_train_epoch`` (the warm-up, then the capture
   and its replay), from the same state as the run without a process
-  group, equal in every tensor (cuDNN deterministic, TF32 off); a gloo
+  group, equal in every tensor (cuDNN deterministic, TF32 off); a mesh's
+  ranks take the plain BatchNorm path, so the run without a process group
+  takes it too (``ops/batch_norm.plain_only``); a gloo
   group on the card refuses the graphs.
 * A narrow 2D DenseNet blend model and TinyCNN on the card against the
   CPU (eval forward within 1e-4 x max(1, |CPU|)), the kernel launched once
@@ -34,7 +36,7 @@ from mmnn_sts_torch.exceptions import ConfigurationError
 from mmnn_sts_torch.models.densenet import DenseNet
 from mmnn_sts_torch.models.multimodal import MultiModalModel
 from mmnn_sts_torch.models.tinycnn import TinyCNN
-from mmnn_sts_torch.ops import fused_dense
+from mmnn_sts_torch.ops import batch_norm, fused_dense
 from mmnn_sts_torch.parallel import mesh
 from mmnn_sts_torch.train.schedule import make_optimizer
 from mmnn_sts_torch.train.state import create_train_state
@@ -114,7 +116,9 @@ def test_cuda_one_nccl_rank_is_bit_equal_eager_and_graphed(
     ds = _split()
     rng = np.random.default_rng(6)
     idx = np.stack([rng.permutation(N).reshape(A, B) for _ in range(2)])
-    want = _run(_state(), ds, idx, False)
+    # the plain BatchNorm path, as the mesh's ranks below take it
+    with batch_norm.plain_only():
+        want = _run(_state(), ds, idx, False)
     for key, value in {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
                        "LOCAL_WORLD_SIZE": "1"}.items():
         monkeypatch.setenv(key, value)

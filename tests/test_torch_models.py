@@ -358,10 +358,12 @@ def test_chip_smoke_kernels_line_reports_no_unmeasured_number():
     row = {"batch": 8, "dtype": "float32", "ms": 2.0, "plain_ms": 3.0,
            "bound_ms": 1.0, "bound_by": "bytes", "gemm_ms": 1.5,
            "host_us": 4.0, "max_abs_err": 1e-6}
-    fp32, bf16, stamp = chip_smoke.kernels_line({"kernel_phase": [row, row]})
+    fp32, bf16, stamp, bn = chip_smoke.kernels_line(
+        {"kernel_phase": [row, row]})
     assert (fp32["ms"], fp32["plain_ms"], fp32["bound_ms"],
             fp32["host_us_per_call"], fp32["bound_by"]) == (
         4.0, 6.0, 2.0, 4.0, "bytes")
     assert fp32["per_rank_of_two_ms"] is None and fp32["backward_ms"] is None
     assert bf16["ms"] is None and bf16["max_abs_err"] is None
     assert stamp["name"] == "span_stamp" and stamp["launches"] is None
+    assert bn["name"] == "batch_norm" and bn["ms"] is None
