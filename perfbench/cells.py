@@ -10,10 +10,16 @@ harness reads, relative to the directory that holds ``BENCHMARK.json``:
 * ``perfbench/limits/<cell>.json``: the limit of each number the check
   compares, with the readings it was set from;
 * ``perfbench/metrics/<metric>.py`` of each per-layer metric the cell
-  reports: a module with ``read(run, cell) -> float | None``.
+  reports: a module with ``read(run, cell) -> float | None``;
+* ``perfbench/reference/kinds/<kind>.py`` of the configuration's
+  ``model.kind``: its model family's plain reference, a module with
+  ``build(model_cfg, precision)``, ``layers(model_cfg, spatial)`` and
+  optionally ``init_kind(name, shape)`` (the contract is in
+  ``perfbench/reference/common.py``). The benchmark's weights, its
+  reference model and its operation counts all come from it.
 
-A configuration, a mix, a cell or a metric is added by adding files and
-entries; nothing here names one.
+A configuration of any family, a mix, a cell or a metric is added by
+adding files and entries; nothing here names one.
 """
 
 from __future__ import annotations
@@ -36,12 +42,21 @@ class Cell:
 
     def reader(self, metric: str):
         """The ``read(run, cell)`` function of a per-layer metric."""
-        path = self.root / "perfbench" / "metrics" / f"{metric}.py"
-        spec = importlib.util.spec_from_file_location(
-            f"perfbench_metric_{metric.replace('.', '_')}", path)
-        module = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(module)
-        return module.read
+        return _module(self.root / "perfbench" / "metrics" / f"{metric}.py",
+                       f"perfbench_metric_{metric.replace('.', '_')}").read
+
+    def family(self):
+        """The reference module of the configuration's ``model.kind``."""
+        kind = self.config["model"]["kind"]
+        return _module(self.root / "perfbench" / "reference" / "kinds" /
+                       f"{kind}.py", f"perfbench_kind_{kind}")
+
+
+def _module(path: Path, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def _load(path: Path) -> dict:

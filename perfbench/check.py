@@ -48,7 +48,6 @@ import math
 import torch
 
 from . import inputs
-from .reference import model as ref_model
 from .reference import train as ref_train
 
 NUMBERS = ("loss_gap", "loss_gap_early", "grad_gap_median",
@@ -173,10 +172,9 @@ def _reference_side(cell, run, device, precision, half_batch):
     model_cfg = cell.config["model"]
     hp = cell.config["Hyperparameters"]
     multimodal = cell.config["flags"]["preop"]
-    spec = ref_model.weight_spec(model_cfg)
-    weights = inputs.make_weights(spec, run.seeds["weights"], device)
+    weights = inputs.make_weights(cell, run.seeds["weights"], device)
     trainer = ref_train.Trainer(
-        ref_model.build(model_cfg, precision).to(device), weights, hp,
+        cell.family().build(model_cfg, precision).to(device), weights, hp,
         run.steps_per_epoch, cell.config["flags"]["blend"])
     train = run.cohort["train"]
     n = train["image"].shape[0]

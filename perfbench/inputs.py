@@ -14,7 +14,7 @@ import numpy as np
 import torch
 from torch.nn import functional as F
 
-from .reference.model import init_kind
+from .reference import common
 
 _TRUNCATED_STD = 0.87962566103423978  # std of N(0, 1) cut at +-2
 
@@ -24,11 +24,16 @@ def split_seed(seed: int) -> dict:
     return dict(zip(("weights", "cohort", "loop"), (int(w) for w in words)))
 
 
-def make_weights(spec, seed: int, device) -> dict:
-    """One tensor a (name, shape) of ``spec``: BatchNorm scales and running
-    variances 1, shifts, biases and running means 0; convolution and
-    bottleneck kernels N(0, 2 / fan_in); dense kernels a normal cut at two
-    deviations, of variance 1 / fan_in. Drawn in one call."""
+def make_weights(cell, seed: int, device) -> dict:
+    """One tensor a (name, shape) of the weight spec of the cell's model
+    family (``reference.common.weight_spec``), initialised as the family's
+    ``init_kind`` says, or else the shared rule: BatchNorm scales and
+    running variances 1, shifts, biases and running means 0; convolution
+    and bottleneck kernels N(0, 2 / fan_in); dense kernels a normal cut at
+    two deviations, of variance 1 / fan_in. Drawn in one call."""
+    family = cell.family()
+    spec = common.weight_spec(family, cell.config["model"])
+    init_kind = getattr(family, "init_kind", common.init_kind)
     g = torch.Generator(device=device).manual_seed(seed)
     kinds = [init_kind(name, shape) for name, shape in spec]
     drawn = sum(int(np.prod(shape)) for (_, shape), (kind, _) in
@@ -82,13 +87,15 @@ def _volumes(n: int, spatial, channels: int, g, device):
     return vols.clamp(min=1.0).permute(0, 2, 3, 4, 1).contiguous()
 
 
-def make_split(n: int, traffic: dict, model: dict, spatial, g, device):
-    """One split: volumes, the clinical rows (standardised predictors,
-    about a third of them binary), events and durations of each target."""
+def make_split(n: int, traffic: dict, model: dict, spatial, g, device,
+               with_clinical: bool):
+    """One split: volumes, where ``with_clinical`` the clinical rows
+    (standardised predictors, about a third of them binary), events and
+    durations of each target."""
     classes = model["classes"]
     split = {"image": make_volumes(n, spatial, model["in_channels"], g,
                                    device)}
-    if model["kind"] == "densenet_blend":
+    if with_clinical:
         k = model["clinical_inputs"]
         clinical = torch.randn((n, k), generator=g, device=device)
         binary = torch.rand((n, k), generator=g, device=device) < 0.5
@@ -103,10 +110,13 @@ def make_split(n: int, traffic: dict, model: dict, spatial, g, device):
     return split
 
 
-def make_cohort(traffic: dict, model: dict, spatial, seed: int,
-                device) -> dict:
-    """{"train": split, "val": split} of the traffic's sizes."""
+def make_cohort(cell, seed: int, device) -> dict:
+    """{"train": split, "val": split} of the traffic's sizes, with clinical
+    rows where the configuration's ``flags.preop`` asks for them."""
     g = torch.Generator(device=device).manual_seed(seed)
-    return {name: make_split(traffic[f"{name}_patients"], traffic, model,
-                             spatial, g, device)
+    traffic, config = cell.traffic, cell.config
+    spatial = tuple(config["ImageModel"]["spatial_size"])
+    return {name: make_split(traffic[f"{name}_patients"], traffic,
+                             config["model"], spatial, g, device,
+                             config["flags"]["preop"])
             for name in ("train", "val")}

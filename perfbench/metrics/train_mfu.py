@@ -10,9 +10,7 @@ from perfbench import counts
 def read(run, cell):
     if run.window_s <= 0 or not run.train_volumes:
         return None
-    model = cell.config["model"]
-    spatial = cell.config["ImageModel"]["spatial_size"]
-    flops = (run.train_volumes * counts.train_flops(model, spatial)
-             + run.val_volumes * counts.forward_flops(model, spatial))
+    flops = (run.train_volumes * counts.train_flops(cell)
+             + run.val_volumes * counts.forward_flops(cell))
     peak = counts.PEAK_FLOPS[cell.traffic["mfu_peak"]]
     return 100.0 * flops / run.window_s / peak

@@ -29,19 +29,29 @@ TINY_MODEL = {"kind": "densenet_blend", "block_config": [6, 12, 4],
 
 
 def write_tiny_root(root: Path, limits_of: str = "dn121_mmnn.train_fused_fp32",
-                    dtype: str = "float32") -> str:
+                    dtype: str = "float32", model: dict = TINY_MODEL,
+                    image_model: str = "tinydensenet", families=None) -> str:
     """A benchmark root holding one tiny cell; returns its name. The cell
     is held to the limits of the repository's cell ``limits_of``. Its
-    model is a three-block DenseNet blend model at 16^3."""
+    model is ``model`` (by default a three-block DenseNet blend model) at
+    16^3, which the program builds as ``image_model``; the root carries
+    the reference family files ``families`` (by default the
+    repository's)."""
     pb = root / "perfbench"
-    for sub in ("configs", "traffic", "limits"):
+    for sub in ("configs", "traffic", "limits", "reference/kinds"):
         (pb / sub).mkdir(parents=True, exist_ok=True)
     shutil.copytree(REPO / "perfbench" / "metrics", pb / "metrics",
-                    dirs_exist_ok=True)
+                    dirs_exist_ok=True,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    if families is None:
+        families = sorted((REPO / "perfbench" / "reference" /
+                           "kinds").glob("*.py"))
+    for path in families:
+        shutil.copy(path, pb / "reference" / "kinds")
     config = json.loads((REPO / "perfbench" / "configs" /
                          "dn121_mmnn.json").read_text())
-    config["ImageModel"].update(name="tinydensenet", spatial_size=[16] * 3)
-    config["model"] = TINY_MODEL
+    config["ImageModel"].update(name=image_model, spatial_size=[16] * 3)
+    config["model"] = model
     (pb / "configs" / "tiny.json").write_text(json.dumps(config))
     traffic = json.loads((REPO / "perfbench" / "traffic" /
                           "train_fused_fp32.json").read_text())
@@ -61,6 +71,16 @@ def write_tiny_root(root: Path, limits_of: str = "dn121_mmnn.train_fused_fp32",
         m.pop("workloads", None)
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
     return "tiny.mix"
+
+
+def config_cell(config: str):
+    """A cell of the repository's configuration file ``config``, with no
+    traffic or limits (``dn264_3d`` has no cell in BENCHMARK.json)."""
+    from perfbench.cells import Cell
+
+    return Cell(name=config, config=json.loads(
+        (REPO / "perfbench" / "configs" / f"{config}.json").read_text()),
+        traffic={}, limits={}, end_to_end=[], per_layer=[], root=REPO)
 
 
 @pytest.fixture(scope="session")

@@ -8,7 +8,7 @@ import json
 import pytest
 
 from perfbench import counts
-from perfbench.tests.conftest import REPO
+from perfbench.tests.conftest import REPO, config_cell
 
 SPATIAL = (64, 64, 64)
 
@@ -40,8 +40,7 @@ def test_one_dense_layer_by_hand():
     """block1_layer1 of DenseNet121 on one 64^3 volume: the map is 16^3
     after the stem and the pool; the bottleneck takes 64 channels to 128,
     the 3^3 convolution 128 to 32."""
-    layers = {l["name"]: l for l in counts.layers(model("dn121_mmnn"),
-                                                  SPATIAL)}
+    layers = {l["name"]: l for l in counts.layers(config_cell("dn121_mmnn"))}
     vox = 16 ** 3
     assert 2 * layers["block1_layer1.bottleneck"]["macs"] == \
         2 * vox * 64 * 128 == 67_108_864
@@ -50,12 +49,12 @@ def test_one_dense_layer_by_hand():
 
 
 def test_training_counts_no_input_gradient_for_the_inputs():
-    m = model("dn121_mmnn")
-    layers = counts.layers(m, SPATIAL)
+    cell = config_cell("dn121_mmnn")
+    layers = counts.layers(cell)
     first = sum(2.0 * l["macs"] for l in layers if l["first"])
-    assert counts.train_flops(m, SPATIAL) == pytest.approx(
-        3 * counts.forward_flops(m, SPATIAL) - first)
-    assert 12.0e9 < counts.forward_flops(m, SPATIAL) < 12.3e9
+    assert counts.train_flops(cell) == pytest.approx(
+        3 * counts.forward_flops(cell) - first)
+    assert 12.0e9 < counts.forward_flops(cell) < 12.3e9
 
 
 def test_peaks():

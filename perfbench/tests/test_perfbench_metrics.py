@@ -91,15 +91,23 @@ def test_step_times_by_name():
         pytest.approx(300 / 8)
     assert cell.reader("conv_ms_per_step")(run, cell) == \
         pytest.approx(500 / 8)
+    assert cell.reader("batch_norm_ms_per_step")(run, cell) is None
+    run.trace = trace_of(device + [
+        ("void (anonymous namespace)::bn_stats_kernel<float, 8>", 0.9, 0.95),
+        ("void (anonymous namespace)::bn_backward_dx_kernel<float, 8, true, "
+         "true>", 0.95, 1.0)])
+    assert cell.reader("batch_norm_ms_per_step")(run, cell) == \
+        pytest.approx(100 / 8)
+    assert cell.reader("elementwise_ms_per_step")(run, cell) == \
+        pytest.approx(300 / 8)
 
 
 def test_mfu_and_capture():
     cell = resolve(BF16, REPO)
-    spatial = (64,) * 3
     run = types.SimpleNamespace(window_s=10.0, train_volumes=4800,
                                 val_volumes=960, capture_s=1.5)
-    flops = (4800 * counts.train_flops(cell.config["model"], spatial)
-             + 960 * counts.forward_flops(cell.config["model"], spatial))
+    flops = (4800 * counts.train_flops(cell)
+             + 960 * counts.forward_flops(cell))
     assert cell.reader("train_mfu")(run, cell) == pytest.approx(
         100 * flops / 10.0 / 989e12)
     assert cell.reader("graph_capture_s")(run, cell) == 1.5
@@ -150,25 +158,47 @@ RECORDED = [
      " false, true, (cudnnKernelDataType_t)2>", None),
     ("void fused_bn_relu_matmul_bf16_kernel<128>(CUtensorMap)", None),
     ("Memcpy DtoD (Device -> Device)", None),
+    ("void (anonymous namespace)::bn_stats_kernel<float, 8>(float const*, "
+     "float const*, (anonymous namespace)::Shape, float const*, float "
+     "const*, float*, float*, int, float, float, float, float, float*, "
+     "float*, float*, float*, int)", "batch_norm"),
+    ("void (anonymous namespace)::bn_normalize_kernel<__nv_bfloat16, 8>("
+     "__nv_bfloat16 const*, __nv_bfloat16*, float const*, (anonymous "
+     "namespace)::Shape, float const*, float const*, float const*)",
+     "batch_norm"),
+    ("void (anonymous namespace)::bn_backward_sums_kernel<float, 8, true>("
+     "float const*, float const*, float const*, float const*, (anonymous "
+     "namespace)::Shape, float const*, float const*, float*)", "batch_norm"),
+    ("void (anonymous namespace)::bn_backward_dx_kernel<__nv_bfloat16, 8, "
+     "false, false>(__nv_bfloat16 const*, __nv_bfloat16 const*, "
+     "__nv_bfloat16 const*, __nv_bfloat16*, float const*, (anonymous "
+     "namespace)::Shape, float const*, float const*, float const*, float "
+     "const*)", "batch_norm"),
 ]
 
 
 @pytest.mark.parametrize("name,want", RECORDED)
 def test_kernel_family_by_name(name, want):
     assert kernels.family(name) == want
+    # no kernel falls into two families: the order of the tests in
+    # ``family`` never decides
+    matched = [kernels.ELEMENTWISE.search(name),
+               kernels.CONV.search(name.lower()),
+               kernels.BATCH_NORM.search(name)]
+    assert sum(m is not None for m in matched) == (want is not None)
 
 
 def test_conv_and_elementwise_readers_share_no_kernel():
+    """Nor does the BatchNorm kernels' reader share one with either."""
     cell = resolve(BF16, REPO)
     device = [(name, i, i + 1.0) for i, (name, _) in enumerate(RECORDED)]
     run = types.SimpleNamespace(trace=trace_of(device, end=len(device)),
                                 profiled={"supersteps": 1})
-    conv = cell.reader("conv_ms_per_step")(run, cell)
-    elementwise = cell.reader("elementwise_ms_per_step")(run, cell)
-    assert conv == pytest.approx(1e3 * sum(w == "conv" for _, w in RECORDED))
-    assert elementwise == pytest.approx(
-        1e3 * sum(w == "elementwise" for _, w in RECORDED))
+    read = {f: cell.reader(f"{f}_ms_per_step")(run, cell)
+            for f in ("conv", "elementwise", "batch_norm")}
+    for f, ms in read.items():
+        assert ms == pytest.approx(1e3 * sum(w == f for _, w in RECORDED))
     # each kernel's second counted once at most: the rest in neither
     neither = sum(w is None for _, w in RECORDED)
-    assert conv + elementwise == pytest.approx(
+    assert sum(read.values()) == pytest.approx(
         1e3 * (len(RECORDED) - neither))

@@ -2,6 +2,7 @@
 and its control against the limits."""
 
 import ast
+import re
 import time
 
 import pytest
@@ -96,7 +97,13 @@ def test_epoch_order_and_pad_match_the_program(n):
 
 
 def test_reference_imports_nothing_of_the_program():
-    for path in (REPO / "perfbench" / "reference").glob("*.py"):
+    """Every file under ``reference/``, the families in ``kinds/`` and the
+    tests' own family included: torch, numpy, math and the reference's own
+    modules alone."""
+    paths = [*(REPO / "perfbench" / "reference").rglob("*.py"),
+             *(REPO / "perfbench" / "tests" / "family").glob("*.py")]
+    assert any(p.parent.name == "kinds" for p in paths)
+    for path in paths:
         tree = ast.parse(path.read_text())
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
@@ -107,7 +114,24 @@ def test_reference_imports_nothing_of_the_program():
                 continue
             for name in names:
                 assert name.split(".")[0] in (
-                    "torch", "numpy", "math", "__future__"), (path, name)
+                    "torch", "numpy", "math", "__future__") or (
+                    name.startswith("perfbench.reference")), (path, name)
+
+
+def test_no_kind_is_named_outside_its_family():
+    """The harness and the shared reference modules name no model kind:
+    each family lives in ``reference/kinds/<kind>.py`` alone, found by the
+    configuration's ``model.kind``."""
+    kinds = [p.stem for p in
+             (REPO / "perfbench" / "reference" / "kinds").glob("*.py")]
+    assert "densenet_blend" in kinds
+    shared = [*(REPO / "perfbench").glob("*.py"),
+              *(REPO / "perfbench" / "reference").glob("*.py")]
+    assert len(shared) > 10
+    for path in shared:
+        text = path.read_text()
+        for kind in kinds:
+            assert not re.search(rf"\b{kind}\b", text), (path, kind)
 
 
 def test_fp8_control_fails_the_limits(tmp_path):

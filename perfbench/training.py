@@ -50,7 +50,6 @@ import numpy as np
 import torch
 
 from . import inputs
-from .reference.model import weight_spec
 from .trace import Trace
 
 
@@ -165,10 +164,8 @@ def run_program(cell, seed: int, seconds: float, trace: bool, device,
     hp = cfg.hyperparameters
     hp.seed = seeds["loop"]
 
-    weights = inputs.make_weights(weight_spec(model_cfg), seeds["weights"],
-                                  device)
-    cohort = inputs.make_cohort(traffic, model_cfg, spatial, seeds["cohort"],
-                                device)
+    weights = inputs.make_weights(cell, seeds["weights"], device)
+    cohort = inputs.make_cohort(cell, seeds["cohort"], device)
     multimodal = flags["preop"]
     train_ds, val_ds = datasets(cohort, multimodal)
     ranks = settle_space(make_mesh(cfg.tpu.mesh_shape,
