@@ -14,7 +14,11 @@ module names, so a key maps to a ``state_dict`` name by its path, with:
 * the DenseNet bottleneck read from either JAX layout into the one fused
   port module ``<layer>.fused1.{scale, bias, kernel, mean, var}``: the
   unfused ``norm1/BatchNorm_0`` + ``conv1/kernel (1, 1, [1,] Cin, Cout)``, or
-  the fused ``fused1/{scale, bias, kernel (Cin, Cout)}`` + ``{mean, var}``.
+  the fused ``fused1/{scale, bias, kernel (Cin, Cout)}`` + ``{mean, var}``;
+* LayerNorm (the Swin encoder's, which has no JAX model) as flax names it:
+  ``<m>/{scale, bias}`` <-> ``<m>.{weight, bias}``;
+* the Swin attention's ``relative_position_bias_table`` (tokens, heads)
+  under its own name, as it is.
 
 ``to_jax_flat`` writes either layout back, so both round-trip exactly.
 """
@@ -30,6 +34,7 @@ _BN_LEAVES = {"scale": "weight", "bias": "bias",
               "mean": "running_mean", "var": "running_var"}
 _BN_LEAVES_BACK = {v: k for k, v in _BN_LEAVES.items()}
 _FUSED_LEAVES = ("scale", "bias", "kernel", "mean", "var")
+_BIAS_TABLE = "relative_position_bias_table"
 
 
 def _is_bottleneck(path: list[str], name: str) -> bool:
@@ -49,6 +54,10 @@ def _port_entry(key: str, value: np.ndarray) -> tuple[str, np.ndarray]:
             return ".".join(path[:-1] + ["fused1", leaf]), value
         return ".".join(path + [_BN_LEAVES[leaf]]), value
     if path and path[-1] == "fused1" and leaf in _FUSED_LEAVES:
+        return ".".join(path + [leaf]), value
+    if leaf == "scale" and value.ndim == 1:  # a LayerNorm
+        return ".".join(path + ["weight"]), value
+    if leaf == _BIAS_TABLE and value.ndim == 2:
         return ".".join(path + [leaf]), value
     if leaf == "kernel" and _is_bottleneck(path, "conv1"):
         return ".".join(path[:-1] + ["fused1", "kernel"]), \
@@ -109,6 +118,10 @@ def to_jax_flat(state_dict: Mapping[str, torch.Tensor],
         elif leaf == "weight" and value.ndim == 2:
             key = path + ["kernel"]
             value = value.T
+        elif leaf == "weight" and value.ndim == 1:  # a LayerNorm
+            key = path + ["scale"]
+        elif leaf == _BIAS_TABLE and value.ndim == 2:
+            key = path + [leaf]
         elif leaf == "bias":
             key = path + ["bias"]
         else:

@@ -298,6 +298,28 @@ class BatchNorm(nn.Module):
         return F.relu(out) if relu else out
 
 
+class LayerNorm(nn.Module):
+    """LayerNorm over the last dim (eps 1e-5, torch's ``nn.LayerNorm``),
+    computed in float32 whatever x's dtype; the output is in ``dtype``, or
+    in x's where that is None. ``affine=False`` has no parameters (MONAI's
+    ``F.layer_norm`` on the Swin encoder's output)."""
+
+    def __init__(self, num_features: int, dtype: torch.dtype | None = None,
+                 affine: bool = True):
+        super().__init__()
+        self.compute_dtype = dtype
+        self.shape = (num_features,)
+        if affine:
+            self.weight = nn.Parameter(torch.ones(num_features))
+            self.bias = nn.Parameter(torch.zeros(num_features))
+        else:
+            self.weight = self.bias = None
+
+    def forward(self, x):
+        y = F.layer_norm(x.float(), self.shape, self.weight, self.bias, 1e-5)
+        return y.to(self.compute_dtype or x.dtype)
+
+
 class Dropout(nn.Module):
     """Dropout in train mode: each element (``channels=False``, flax
     ``nn.Dropout``) or each (sample, channel) (``channels=True``, torch
@@ -383,8 +405,8 @@ class Conv3d(_ComputeDtype, nn.Conv3d):
 
 class Linear(nn.Linear):
     """``nn.Linear`` computing in ``compute_dtype`` where it is set (flax
-    ``Dense`` with ``dtype``: the product rounded to it, then the bias
-    added in it)."""
+    ``Dense`` with ``dtype``: the product rounded to it, then the bias,
+    where there is one, added in it)."""
 
     compute_dtype: torch.dtype | None = None
 
@@ -392,7 +414,8 @@ class Linear(nn.Linear):
         if self.compute_dtype is None:
             return super().forward(x)
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
+        y = F.linear(x.to(dt), self.weight.to(dt))
+        return y if self.bias is None else y + self.bias.to(dt)
 
 
 def _ntuple(v, n: int) -> tuple[int, ...]:

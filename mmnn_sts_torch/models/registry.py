@@ -8,13 +8,16 @@ by the same prefixes in the same order: ``densenet121``, ``tinydensenet``,
 ``seresnet50`` and ``r3d_18`` / ``r3d18``, each given exactly the
 arguments the JAX registry gives it (``ImageModel.dropout_prob`` only
 where it passes it; ``TPU.remat`` to the DenseNets), in
-``TPU.compute_dtype`` (float32 or bfloat16). Images with clinical
-predictors build the multimodal model, which only ``tinycnn``,
-``tinydensenet`` and ``densenet121`` may encode (registry.py:22,
-152-157); without images, the clinical MLP. ``ImageModel.spatial_dims``
-(2 or 3) reaches every family but ``r3d_18``, which the JAX registry
-builds 3D whatever it says (registry.py:106); a 2D model takes
-(N, H, W, C) inputs.
+``TPU.compute_dtype`` (float32 or bfloat16); and, with no JAX
+counterpart, ``swinvit``: Swin UNETR's 3D Swin-transformer encoder at its
+published widths with DenseNet121's feature head (``models/swin.py``; 3D
+only, a spatial size divisible by 32, no ``space`` or ``model`` axis).
+Images with clinical predictors build the multimodal model, which only
+``tinycnn``, ``tinydensenet``, ``densenet121`` (registry.py:22, 152-157)
+and ``swinvit`` may encode; without images, the clinical MLP.
+``ImageModel.spatial_dims`` (2 or 3) reaches every family but ``r3d_18``,
+which the JAX registry builds 3D whatever it says (registry.py:106), and
+``swinvit``, which refuses 2; a 2D model takes (N, H, W, C) inputs.
 """
 
 from __future__ import annotations
@@ -31,9 +34,11 @@ from .mlp import MLP
 from .multimodal import MultiModalModel
 from .resnet3d import ResNet3D18
 from .seresnet import SEResNet50
+from .swin import SwinViT, check_config
 from .tinycnn import TinyCNN
 
-_MULTIMODAL_COMPATIBLE = ("tinycnn", "tinydensenet", "densenet121")
+_MULTIMODAL_COMPATIBLE = ("tinycnn", "tinydensenet", "densenet121",
+                          "swinvit")
 # the names whose JAX model takes TPU.use_pallas_fused_dense (the fused1
 # bottleneck layout); the other DenseNets keep norm1 + conv1
 _PALLAS_MODELS = ("densenet121", "tinydensenet")
@@ -86,6 +91,12 @@ def build_image_model(cfg: Config, class_head: bool = True) -> nn.Module:
         return SEResNet50(in_channels=im.in_channels,
                           num_classes=im.num_classes, dtype=dtype,
                           spatial_dims=sd)
+    if name.startswith("swinvit"):
+        check_config(sd, im.spatial_size, cfg.tpu.mesh_axes,
+                     cfg.tpu.mesh_shape)
+        return SwinViT(in_channels=im.in_channels, out_channels=out,
+                       feature_channels=im.feature_layers,
+                       dropout_prob=im.dropout_prob, dtype=dtype)
     if name.startswith(("r3d_18", "r3d18")):
         return ResNet3D18(in_channels=im.in_channels,
                           num_classes=im.num_classes, dtype=dtype)
@@ -131,7 +142,7 @@ def build_model(
         if not cfg.image_model.name.lower().startswith(_MULTIMODAL_COMPATIBLE):
             raise ConfigurationError(
                 "Image models used to build multimodal models must be one of "
-                "'tinycnn', 'tinydensenet' or 'densenet121'"
+                "'tinycnn', 'tinydensenet', 'densenet121' or 'swinvit'"
             )
         return MultiModalModel(
             image_model=image_model,

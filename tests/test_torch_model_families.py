@@ -329,7 +329,8 @@ def test_gradcam_of_a_family_jax_cannot_draw_raises(name):
                                   "monaidensenet"])
 def test_multimodal_needs_a_compatible_family(name):
     """As the JAX registry (registry.py:152-157): the same error type and
-    message."""
+    message, whose list of families also names the port's ``swinvit``
+    (which has no JAX model)."""
     jcfg, cfg = JaxConfig(), Config()
     jcfg.image_model.name = cfg.image_model.name = name
     messages = []
@@ -339,7 +340,10 @@ def test_multimodal_needs_a_compatible_family(name):
             with torch.device("meta"):
                 build(c, True, True, False, True)
         messages.append(str(info.value))
-    assert messages[0] == messages[1] and "'tinycnn'" in messages[1]
+    jax_list = "'tinydensenet' or 'densenet121'"
+    assert jax_list in messages[0] and "'tinycnn'" in messages[1]
+    assert messages[1] == messages[0].replace(
+        jax_list, "'tinydensenet', 'densenet121' or 'swinvit'")
 
 
 def test_registry_names_follow_the_jax_prefix_rule():
